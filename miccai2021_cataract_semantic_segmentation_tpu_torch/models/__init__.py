@@ -1,0 +1,39 @@
+"""Model construction from a reference-style `graph` config section."""
+from __future__ import annotations
+
+import torch
+
+from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import OCRNet  # noqa: F401
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import ResNetBackbone  # noqa: F401
+
+# graphs of the JAX package that the port does not have yet
+_LATER = {
+    "DeepLabv3": "item 10 (single-scale fused Lovász routing and DeepLabv3)",
+    "DeepLabv3Plus": "item 10 (single-scale fused Lovász routing and DeepLabv3+)",
+    "UPerNet": "item 10 (EncDec-UPerNet)",
+    "EncDec": "item 10 (EncDec-UPerNet)",
+}
+
+
+def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
+                seed: int = 0) -> torch.nn.Module:
+    """The graph's model in eval mode on `device`, with weights initialised
+    from `seed` (the caller's global RNG state is left as it was)."""
+    dev = resolve_device(device)
+    name = graph.get("model", "OCRNet")
+    if name != "OCRNet":
+        item = _LATER.get(name, "item 12 (the remaining graphs)")
+        raise NotImplementedError(
+            f"graph '{name}' is not ported yet (ROADMAP Queue A {item})")
+    backbone = graph.get("backbone", "resnet101")
+    if backbone.startswith("hrnetv2") or graph.get("projector") is not None:
+        raise NotImplementedError(
+            "OCRNet on HRNet and the projector branch are not ported yet "
+            "(ROADMAP Queue A item 12)")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = OCRNet(task=task, backbone=backbone,
+                       out_stride=graph.get("out_stride", 8),
+                       dropout=graph.get("dropout", 0.0))
+    return model.to(dev).eval()

@@ -1,0 +1,55 @@
+"""Shared NCHW building blocks with the reference's torch layer semantics.
+
+Port of the JAX package's models/layers.py. BatchNorm uses eps 1e-5 and
+torch momentum 0.1 (flax momentum 0.9 is torch momentum 0.1). Modules keep
+the reference's torch state-dict names, so a published checkpoint loads
+with `load_state_dict(strict=True)`.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+
+
+def torch_pad(kernel_size: int, stride: int = 1, dilation: int = 1) -> int:
+    """'same-ish' padding as the reference computes it (ceil division)."""
+    return (kernel_size + (kernel_size - 1) * (dilation - 1) - stride + 1) // 2
+
+
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """Accumulation dtype: >= f32 (bf16 upcasts; f64 parity runs stay f64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def to_f32(x: torch.Tensor) -> torch.Tensor:
+    """Model outputs leave in at-least-f32 (bf16 forwards emit f32 logits)."""
+    return x.to(acc_dtype(x))
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class ConvBN(nn.Sequential):
+    """Conv -> BatchNorm -> ReLU as `Sequential(conv, bn, relu)`: the keys
+    `<name>.0.weight`, `<name>.1.running_mean`, ... of the reference."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 bias: bool = False):
+        p = torch_pad(kernel_size, stride, dilation)
+        super().__init__(
+            nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                      padding=p, dilation=dilation, bias=bias),
+            batch_norm(out_channels),
+            nn.ReLU(inplace=True))
+
+
+def upsample_like(x: torch.Tensor, ref_hw: tuple[int, int],
+                  align_corners: bool = True) -> torch.Tensor:
+    return resize_bilinear(x, ref_hw, align_corners=align_corners)

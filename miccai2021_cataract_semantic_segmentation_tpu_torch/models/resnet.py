@@ -1,0 +1,98 @@
+"""torchvision-compatible dilated ResNet backbones (Bottleneck family).
+
+Port of the JAX package's models/resnet.py with torchvision's module names
+(`conv1`, `bn1`, `layer1.0.conv2`, `layer2.0.downsample.0`, ...), so the
+reference checkpoints load directly. `dilate_stages` is torchvision's
+`replace_stride_with_dilation` for (layer2, layer3, layer4); the first
+block of a dilated layer keeps the previous dilation for its 3x3 conv.
+The BasicBlock backbones (ResNet-18/34) come with the other graphs.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import batch_norm
+
+# name: blocks per stage (Bottleneck, groups 1, base width 64)
+_ARCHS = {
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+}
+# output channels of layer1..layer4 for every arch above
+OUTPUT_CHANNELS = (256, 512, 1024, 2048)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, downsample: bool = False):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                               padding=dilation, dilation=dilation, bias=False)
+        self.bn2 = batch_norm(planes)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = batch_norm(out)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = nn.Sequential(
+            nn.Conv2d(in_planes, out, 1, stride=stride, bias=False),
+            batch_norm(out)) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return self.relu(y + identity)
+
+
+class ResNetBackbone(nn.Module):
+    """4-stage feature extractor returning {'layer1'..'layer4'}."""
+
+    def __init__(self, arch: str = "resnet50",
+                 dilate_stages: Sequence[bool] = (False, False, False)):
+        super().__init__()
+        if arch not in _ARCHS:
+            raise NotImplementedError(
+                f"backbone '{arch}' is not ported yet (ROADMAP Queue A "
+                "item 12: the remaining graphs and backbones)")
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = batch_norm(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        dilation, in_planes = 1, 64
+        for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
+                                                  _ARCHS[arch])):
+            stride = 1 if li == 0 else 2
+            dilated = li > 0 and dilate_stages[li - 1]
+            if dilated:
+                dilation *= stride
+                stride = 1
+            layer = []
+            for bi in range(blocks):
+                s = stride if bi == 0 else 1
+                d = dilation // (2 if (bi == 0 and dilated) else 1)
+                need_ds = bi == 0 and (s != 1 or
+                                       in_planes != planes * Bottleneck.expansion)
+                layer.append(Bottleneck(in_planes, planes, s, max(d, 1), need_ds))
+                in_planes = planes * Bottleneck.expansion
+            self.add_module(f"layer{li + 1}", nn.Sequential(*layer))
+        # torchvision's initialisation (kaiming-normal fan-out convs)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                        nonlinearity="relu")
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        feats = {}
+        for i in range(1, 5):
+            x = getattr(self, f"layer{i}")(x)
+            feats[f"layer{i}"] = x
+        return feats

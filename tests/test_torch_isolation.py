@@ -1,0 +1,140 @@
+"""The port stands alone: it imports nothing of JAX, flax, optax or the JAX
+package, its entry points refuse to run on a missing card unless asked for
+the CPU, and its CPU path launches no kernel."""
+import ast
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS, reset_launches
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+    eval_spec, make_eval_loss_step, make_eval_step)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import (
+    load_config, validate)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "miccai2021_cataract_semantic_segmentation_tpu_torch"
+CONFIG = load_config(ROOT / "configs" / "OCRNet_rf_lvsz.json")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax",
+           "miccai2021_cataract_semantic_segmentation_tpu")
+
+_SUBPROCESS = """
+import importlib, json, pkgutil, sys
+BLOCKED = %r
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import miccai2021_cataract_semantic_segmentation_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+    eval_spec, make_eval_loss_step)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import load_config
+cfg = load_config("configs/OCRNet_rf_lvsz.json")
+model = build_model(cfg["graph"], 2, device="cpu")
+step = make_eval_loss_step(build_loss(cfg["loss"], 2, "cpu"),
+                           eval_spec(cfg["data"]["transforms"]), "cpu", "fp32")
+rng = np.random.default_rng(0)
+_, _, cm, loss = step(model, rng.integers(0, 256, (1, 30, 40, 3), dtype=np.uint8),
+                      rng.integers(0, 18, (1, 30, 40), dtype=np.uint8), 0)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
+                  "launches": {k: v.launches for k, v in KERNELS.items()},
+                  "leaked": leaked}))
+"""
+
+
+def test_port_imports_and_runs_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _SUBPROCESS % (BLOCKED,)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(res["modules"]) >= 20
+    assert np.isfinite(res["loss"]) and res["cm"] > 0
+    assert res["launches"] == {"fu_hist": 0}
+    assert res["leaked"] == []
+
+
+def _port_sources():
+    return sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) \
+        + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(BLOCKED), f"{path}:{node.lineno}"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without CUDA")
+
+
+@pytest.mark.parametrize("entry", ["build_model", "build_loss",
+                                   "make_eval_step", "make_eval_loss_step",
+                                   "validate"])
+def test_default_device_raises_without_cuda(entry):
+    _no_card()
+    spec = eval_spec(CONFIG["data"]["transforms"])
+    calls = {
+        "build_model": lambda: build_model(CONFIG["graph"], 2),
+        "build_loss": lambda: build_loss(CONFIG["loss"], 2),
+        "make_eval_step": lambda: make_eval_step(spec, 17),
+        "make_eval_loss_step": lambda: make_eval_loss_step(
+            build_loss(CONFIG["loss"], 2, "cpu"), spec),
+        "validate": lambda: validate(
+            build_model(CONFIG["graph"], 2, device="cpu"), CONFIG,
+            np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 8, 8), np.uint8)),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_cpu_path_launches_no_kernel():
+    reset_launches()
+    model = build_model(CONFIG["graph"], 2, device="cpu")
+    rng = np.random.default_rng(1)
+    res = validate(model, CONFIG, rng.integers(0, 256, (3, 30, 40, 3), dtype=np.uint8),
+                   rng.integers(0, 18, (3, 30, 40), dtype=np.uint8),
+                   device="cpu", batch_size=2)
+    assert np.isfinite(res["valid_loss"])
+    assert {k: v.launches for k, v in KERNELS.items()} == {"fu_hist": 0}
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    _no_card()
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
