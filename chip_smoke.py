@@ -9,16 +9,34 @@ Phases (any failure raises and the run exits non-zero):
   3. kernel B1 (the fused two-scale bucket-Lovász histogram) against its
      plain PyTorch version on the card, at the flagship shape and at edge
      shapes, with its time, the plain version's time and its bound;
-  4. the flagship validation (OCRNet-R50 os8, task 2, 540x960 frames padded
+  4. kernel B2 (the fused bucket-Lovász backward) against its plain
+     version at the same shapes, from the bf16-rounded, cotangent-scaled
+     table of a forward on the same inputs: its bucket ids counted must
+     give B1's histogram exactly, its gradient must equal the plain
+     arithmetic at those ids, and two runs must agree bit for bit; with
+     its time, the plain version's time and its bound;
+  5. the flagship validation (OCRNet-R50 os8, task 2, 540x960 frames padded
      to 544x960, batch 8, two-scale bucket Lovász at B=1024, bf16) through
      `validate` at full width on a seeded synthetic set, with B1's launch
      count read around that run, one batch's loss recomputed with B1's
      plain version, and the step's device time by kernel group
      (torch.profiler);
-  5. the eval-loss step on the card against the same step on the CPU at a
-     small input in float32.
-The last line of stdout is {"ok": true, "device": {...}}; the line before
-it is the card's name and power limit as nvidia-smi reports them.
+  6. the eval-loss step on the card against the same step on the CPU at a
+     small input in float32;
+  7. the flagship train slice at full width (the same model, set and
+     precision; pad, flip, blur and colorjitter; Adam at 1e-4) through
+     `train_steps` over the set's full batches, with B1's and B2's launch
+     counts read around that run (one each per step), then a 10-step
+     overfit of one batch whose loss must fall; the train step's time,
+     frames/s, peak memory and device time by kernel group;
+  8. the train step on the card against the same step on the CPU at a
+     small input (TF32 off, pad only), for two batches: in float64 loss,
+     gradients, grad_norm, new parameters, BatchNorm statistics and the s8
+     confusion matrix to tight tolerances; in float32 the same, with the
+     gradients held by their distance from the float64 ones.
+The line before the last line of stdout is the card's name and power limit
+as nvidia-smi reports them; the line before it is the kernels' JSON record;
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -40,6 +58,20 @@ PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
 # 2x2 interpolation, 5 for the softmax (max, subtract, exp, sum, divide), 2
 # for e = |fg - p|; the bucket id and the count are integer work
 B1_OPS_PER_PAIR = 16
+# B2 per counted pair: B1's 16, 1 for the sign of the gathered de (the
+# gather is a load), 4 for the softmax VJP (dp * p, its sum, dp - s, times
+# p) and 4 for the width pass of the separable transposed interpolation
+# (two taps, a multiply and an add each); the height pass does 4 per
+# element of the (N, R, H_pad, ws) width-transposed rows, which is
+# 4 * ws / W_pad per pair (`b2_ops`)
+B2_OPS_PER_PAIR = 16 + 1 + 4 + 4
+B2_OPS_PER_HEIGHT_TAP_PAIR = 4
+
+
+def b2_ops(pairs: int, ws: int, w_pad: int) -> float:
+    """The float32 operations B2's function needs for `pairs` counted
+    (pixel, row) pairs on a W_pad-wide grid read from ws source columns."""
+    return pairs * (B2_OPS_PER_PAIR + B2_OPS_PER_HEIGHT_TAP_PAIR * ws / w_pad)
 
 
 def nvidia_smi() -> str:
@@ -168,7 +200,97 @@ def check_b1(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the flagship validation at full width
+# phase 4: B2 against its plain version
+# ---------------------------------------------------------------------------
+
+def check_b2(dev) -> dict:
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_grad import (
+        fu_grad, fu_grad_plain, grad_from_fields)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (
+        fu_histogram, fu_mats, plain_fields)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        fu_core_fwd, grad_table, losses_and_tables, norm_dither_seed, pad_labels)
+
+    flagship = None
+    for case in B1_CASES:
+        name, n, c, (hs, ws), (h, w), nb, edges, dseed, ignore = case
+        li, lf, labels = b1_inputs(case, dev)
+        lbl = pad_labels(labels, ignore)
+        mats = fu_mats(hs, ws, (h, w), lbl.shape[1], lbl.shape[2], True, dev)
+        ls = torch.cat([li, lf], 1).contiguous()
+        seed, dither = norm_dither_seed(dseed)
+        kw = dict(n_cls=c, n_buckets=nb, edges=edges, seed=seed, dither=dither)
+        # the table of the loss 0.4 * interm + 1.0 * final: per row, the
+        # scale's weight over the number of classes present in it
+        _, gts, g_fg, g_bg = losses_and_tables(fu_core_fwd(
+            [li, lf], lbl, c, (h, w), nb, True, edges, seed, dither))
+        present = (gts > 0).float().reshape(2, c)
+        ct = (torch.tensor([[0.4], [1.0]], device=dev) * present
+              / present.sum(1, keepdim=True).clamp_min(1.0)).reshape(-1)
+        table = grad_table(g_fg, g_bg, ct)
+        got, bids = fu_grad.with_bucket_ids(ls, lbl, mats, table, **kw)
+        again = fu_grad(ls, lbl, mats, table, **kw)
+        ref = fu_grad_plain(ls, lbl, mats, table, **kw)
+        p, fg, keep, pbid = plain_fields(ls, lbl, mats, **kw)
+        kbid = bids.reshape(pbid.shape).long()
+        same_ids = grad_from_fields(p, fg, keep, kbid, mats, table)
+        torch.cuda.synchronize()
+        counted = keep[:, None, None].expand_as(pbid)
+        pairs = int(counted.sum())
+        id_diff = int((counted & (kbid != pbid)).sum())
+        row = torch.arange(2 * c, device=dev).reshape(1, 2, c, 1, 1)
+        key = (row * 2 + fg[:, None].long()) * nb + kbid
+        b2_hist = torch.bincount(key[counted], minlength=2 * c * 2 * nb)
+        b1_hist = fu_histogram(ls, lbl, mats, **kw)
+        hist_equal = bool(torch.equal(b2_hist.int().reshape(b1_hist.shape), b1_hist))
+        deterministic = bool(torch.equal(got, again))
+        rel = float((got - ref).norm() / ref.norm())
+        max_abs = float((got - ref).abs().max())
+        rel_same = float((got - same_ids).norm() / same_ids.norm())
+        print(f"B2 {name}: N={n} C={c} s8={hs}x{ws} out={h}x{w} B={nb} "
+              f"edges={edges} dither={dseed} ignore={ignore} pairs={pairs} "
+              f"rel_l2_vs_plain={rel!r} max_abs_vs_plain={max_abs!r} "
+              f"bucket_ids_differing_from_plain={id_diff} "
+              f"rel_l2_vs_plain_at_kernel_ids={rel_same!r} "
+              f"ids_reproduce_B1_histogram={hist_equal} "
+              f"two_runs_bit_equal={deterministic}", flush=True)
+        if not hist_equal:
+            raise AssertionError(f"B2 {name}: its bucket ids do not reproduce "
+                                 "B1's histogram")
+        if not deterministic:
+            raise AssertionError(f"B2 {name}: two runs differ")
+        if not rel_same <= 1e-5:
+            raise AssertionError(f"B2 {name}: relative L2 {rel_same} > 1e-5 "
+                                 "against the plain arithmetic at its ids")
+        if id_diff > 1e-4 * max(pairs, 1):
+            raise AssertionError(f"B2 {name}: {id_diff} bucket ids differ from "
+                                 f"the plain version's, > 1e-4 of {pairs}")
+        if name == "flagship":
+            flagship = dict(ls=ls, lbl=lbl, mats=mats, table=table, kw=kw,
+                            pairs=pairs, max_abs=max_abs, out_numel=got.numel())
+
+    f = flagship
+    args = (f["ls"], f["lbl"], f["mats"], f["table"])
+    kernel_ms = cuda_ms(lambda: fu_grad(*args, **f["kw"]))
+    plain_ms = cuda_ms(lambda: fu_grad_plain(*args, **f["kw"]))
+    n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["table"].numel()
+                   + f["out_numel"])
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    ops = b2_ops(f["pairs"], f["ls"].shape[3], f["lbl"].shape[2])
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    print(f"B2 flagship timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
+          f"ms (CUDA events, median of 20); bound: {n_bytes} bytes -> "
+          f"{t_bytes!r} ms, {ops!r} f32 ops -> {t_ops!r} ms", flush=True)
+    return {"name": fu_grad.name, "route": "cuda", "source": fu_grad.source,
+            "replaces": fu_grad.replaces, "launches": None,
+            "max_abs_err": f["max_abs"], "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the flagship validation at full width
 # ---------------------------------------------------------------------------
 
 def synthetic_set(n=29, h=540, w=960, seed=0):
@@ -182,7 +304,7 @@ def synthetic_set(n=29, h=540, w=960, seed=0):
     return images, labels
 
 
-def run_slice(dev, cfg) -> int:
+def run_slice(dev, cfg) -> None:
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
         KERNELS, fu_histogram, fu_histogram_plain, reset_launches)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
@@ -216,7 +338,7 @@ def run_slice(dev, cfg) -> int:
 
     step_ms = cuda_ms(lambda: step(model, images[:bs], labels[:bs], 0),
                       reps=10, warmup=1)
-    profile_step(lambda: step(model, images[:bs], labels[:bs], 0))
+    profile_step(lambda: step(model, images[:bs], labels[:bs], 0), "eval-loss")
     cm = res["confusion_matrix"]
     lbl_pad = pad_reflect_hw(torch.as_tensor(labels))
     expected = int((lbl_pad < 17).sum())
@@ -227,11 +349,11 @@ def run_slice(dev, cfg) -> int:
           f"tail of {len(images) - n_full * bs}; {seconds!r} s wall; "
           f"eval-loss step {step_ms!r} ms (CUDA events, median of 10) = "
           f"{bs / step_ms * 1e3!r} frames/s; peak memory {peak} bytes; "
-          f"B1 launches {launches}; cm total {int(cm.sum())} of {expected} "
+          f"kernel launches {launches}; cm total {int(cm.sum())} of {expected} "
           f"counted pixels", flush=True)
-    if launches[fu_histogram.name] != n_full:
-        raise AssertionError(f"B1 launched {launches[fu_histogram.name]} "
-                             f"times in validate, expected {n_full}")
+    if launches != {fu_histogram.name: n_full, "fu_grad": 0}:
+        raise AssertionError(f"kernel launches in validate {launches}, "
+                             f"expected {n_full} of B1 and none of B2")
     for key in ("valid_loss", "miou", "pa", "pac"):
         if not np.isfinite(res[key]):
             raise AssertionError(f"validate {key} = {res[key]}")
@@ -245,7 +367,7 @@ def run_slice(dev, cfg) -> int:
         x, lbl = eval_preprocess(torch.as_tensor(images[:bs]).to(dev), spec,
                                  torch.as_tensor(labels[:bs]).to(dev))
         with torch.autocast("cuda", dtype=torch.bfloat16):
-            out = model(x, full_res_interm=False)
+            out = model(x, full_res=("logits",))
         args = (out["interm_logits_s8"], out["logits_s8"], lbl,
                 lcfg["interm"]["weight"], lcfg["final"]["weight"], None,
                 int(lcfg["lovasz_buckets"]))
@@ -256,17 +378,19 @@ def run_slice(dev, cfg) -> int:
     print(f"batch 0 loss: kernel {loss_k!r}, plain {loss_p!r}", flush=True)
     if abs(loss_k - loss_p) > 1e-5:
         raise AssertionError(f"batch loss kernel {loss_k} vs plain {loss_p}")
-    return launches[fu_histogram.name]
 
 
-# (B1's launches inside the profiled steps come after its count was read)
+# (the kernels' launches inside the profiled steps come after their counts
+# were read)
 _GROUPS = (("B1 fu_hist", ("fu_hist",)),
+           ("B2 fu_grad", ("fu_grad",)),
            ("copies", ("memcpy", "memset")),
            ("layout NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
+           ("optimizer (Adam)", ("adam", "multi_tensor", "foreach")),
            ("convolution", ("conv", "cudnn", "xmma", "implicit", "fprop",
-                            "winograd", "nhwc")),
+                            "dgrad", "wgrad", "winograd", "nhwc")),
            ("matmul", ("gemm", "cutlass", "gemv", "nvjet")),
-           ("batch norm", ("batch_norm", "bn_fw", "batchnorm")),
+           ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
            ("reduction/softmax/argmax", ("reduce", "softmax", "argmax",
                                          "max_", "cumsum", "scan")),
            ("bincount/index", ("bincount", "histogram", "index", "gather",
@@ -283,9 +407,10 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_step(run_step, steps: int = 3) -> None:
-    """Device time by kernel group over `steps` eval-loss steps
-    (torch.profiler), against their CUDA-event span."""
+def profile_step(run_step, what: str, steps: int = 3) -> dict:
+    """Device time by kernel group over `steps` `what` steps
+    (torch.profiler), against their CUDA-event span; returns ms per step
+    by group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,19 +435,21 @@ def profile_step(run_step, steps: int = 3) -> None:
         groups[kernel_group(ev.key)] = groups.get(kernel_group(ev.key), 0.0) + us
         top.append((us, ev.count, ev.key))
     busy_ms = sum(groups.values()) / 1e3
-    print(f"profile: {steps} eval-loss steps, span {span_ms!r} ms (CUDA "
+    per_step = {g: us / 1e3 / steps for g, us in sorted(
+        groups.items(), key=lambda kv: -kv[1])}
+    print(f"profile: {steps} {what} steps, span {span_ms!r} ms (CUDA "
           f"events), device kernel time {busy_ms!r} ms = busy share "
           f"{busy_ms / span_ms!r}", flush=True)
-    print("profile groups (ms per step): " + json.dumps(
-        {g: us / 1e3 / steps for g, us in sorted(
-            groups.items(), key=lambda kv: -kv[1])}), flush=True)
+    print(f"profile groups, {what} (ms per step): " + json.dumps(per_step),
+          flush=True)
     for us, count, key in sorted(top, reverse=True)[:12]:
-        print(f"profile top: {us / 1e3 / steps!r} ms/step, {count // steps} "
-              f"launches/step, {key[:110]}", flush=True)
+        print(f"profile top, {what}: {us / 1e3 / steps!r} ms/step, "
+              f"{count // steps} launches/step, {key[:110]}", flush=True)
+    return per_step
 
 
 # ---------------------------------------------------------------------------
-# phase 5: card against CPU at a small input, float32
+# phase 6: card against CPU at a small input, float32
 # ---------------------------------------------------------------------------
 
 def card_vs_cpu(dev, cfg) -> None:
@@ -357,6 +484,200 @@ def card_vs_cpu(dev, cfg) -> None:
         raise AssertionError("the card's eval-loss step disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the flagship train slice at full width
+# ---------------------------------------------------------------------------
+
+def run_train_slice(dev, cfg) -> dict:
+    """`train_steps` over the synthetic set's full batches with the kernels'
+    counts read around it, a 10-step overfit of one batch, the train step's
+    time and its device time by kernel group; returns the launch counts of
+    the first run and the profile."""
+    import copy
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+        train_metrics_source, train_steps)
+
+    task, bs = int(cfg["data"]["experiment"]), 8
+    images, labels = synthetic_set()
+    model = build_model(cfg["graph"], task, device=dev, seed=0)
+    n_full = len(images) // bs
+    batches = list(np.arange(n_full * bs).reshape(n_full, bs))
+    # warm-up on a copy: cuDNN's plans, the allocator
+    train_steps(copy.deepcopy(model), cfg, images, labels, batches[:1],
+                device=dev)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_steps(model, cfg, images, labels, batches, device=dev)
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print("train_steps: " + json.dumps({k: res[k] for k in (
+        "loss", "miou", "pa", "step_losses", "seconds", "frames_per_s")})
+          + f"; {n_full} steps of {bs} frames; peak memory {peak} bytes; "
+          f"kernel launches {launches}; cm total "
+          f"{int(res['confusion_matrix'].sum())}", flush=True)
+    if launches != {"fu_hist": n_full, "fu_grad": n_full}:
+        raise AssertionError(f"kernel launches in train_steps {launches}, "
+                             f"expected one B1 and one B2 per step ({n_full})")
+    if not np.isfinite(res["step_losses"]).all():
+        raise AssertionError(f"train losses {res['step_losses']}")
+
+    reset_launches()
+    fit = train_steps(model, cfg, images, labels, [batches[0]] * 10,
+                      device=dev, seed=1)
+    fit_launches = {name: k.launches for name, k in KERNELS.items()}
+    losses = fit["step_losses"]
+    print(f"overfit, 10 steps on one batch: losses {losses}; kernel "
+          f"launches {fit_launches}", flush=True)
+    if fit_launches != {"fu_hist": 10, "fu_grad": 10}:
+        raise AssertionError(f"kernel launches in the overfit {fit_launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the overfit loss does not fall: {losses}")
+
+    state = fit["state"]
+    step = make_train_step(build_loss(cfg["loss"], task, dev),
+                           device_spec(cfg["data"]["transforms"]), task,
+                           device=dev, precision=cfg.get("precision", "bf16"),
+                           train_metrics=train_metrics_source(cfg))
+    imgs, lbls = images[:bs], labels[:bs]
+    step_ms = cuda_ms(lambda: step(state, imgs, lbls, 0), reps=10, warmup=2)
+    print(f"train step: {step_ms!r} ms (CUDA events, median of 10) = "
+          f"{bs / step_ms * 1e3!r} frames/s", flush=True)
+    groups = profile_step(lambda: step(state, imgs, lbls, 0), "train")
+    total = sum(groups.values())
+    print(f"train step shares: B1 {groups.get('B1 fu_hist', 0.0) / total!r}, "
+          f"B2 {groups.get('B2 fu_grad', 0.0) / total!r} of the device "
+          "kernel time", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the train step on the card against the CPU, float64 and float32
+# ---------------------------------------------------------------------------
+
+# float64 card against float64 CPU, from the same weights and batch, just
+# above the largest of the readings of two sound runs on an H100 (PERF.md,
+# PR 2). The loss runs in float32 on both sides, as it casts its inputs, so
+# the loss may differ by an ulp and the gradients by B2's float32 arithmetic
+# against its plain version (about 5e-8); "params" is the largest new
+# parameter difference over lr, set by the two convolution biases that feed
+# a BatchNorm, whose gradient is rounding noise that Adam's first update
+# scales up to a fraction of lr
+F64_TOL = {"loss": 2.5e-7, "grads": 1e-7, "grad_norm": 5e-8, "stats": 1e-12,
+           "params": 3e-2}
+# float32: the card's gradients may be at most this many times as far from
+# the CPU's float64 ones as the CPU's float32 gradients are (read: 0.78
+# and 0.98)
+F32_GRAD_RATIO = 1.25
+
+
+def flat_grads(model) -> torch.Tensor:
+    """Every parameter's gradient in one float64 vector (a float32 norm
+    over its 39M elements is off in the third digit on the CPU)."""
+    return torch.cat([p.grad.cpu().reshape(-1) for p in model.parameters()]).double()
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def one_train_step(dev, cfg, images, labels, dtype) -> dict:
+    """One Lovász train step (pad only, Adam) of the seed-0 model in
+    `dtype` on `dev`: its loss, grad_norm, s8 confusion matrix, gradients
+    and new state dict, on the CPU."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+
+    task = int(cfg["data"]["experiment"])
+    model = build_model(cfg["graph"], task, device=dev, seed=0).to(dtype)
+    state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 1))
+    step = make_train_step(build_loss(cfg["loss"], task, dev), device_spec(["pad"]),
+                           task, device=dev,
+                           precision="fp64" if dtype == torch.float64 else "fp32",
+                           train_metrics="s8")
+    m = step(state, images, labels, 0)
+    return dict(loss=float(m["loss"]), norm=float(m["grad_norm"]),
+                cm=m["confusion_matrix"].cpu(), grads=flat_grads(model),
+                sd={k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def train_card_vs_cpu(dev, cfg) -> None:
+    """The train step on the card against the same step on the CPU at a
+    small input (TF32 off, pad only), for two seeded batches.
+
+    In float64 every output must agree to F64_TOL: the card's path (its
+    convolutions and BatchNorm forward and backward, B1 and B2, Adam) is
+    the CPU's. In float32 the gradients part by a few percent: float32's own
+    rounding, amplified through the train-mode network at random weights
+    and batch 2, moves each side's gradients that far from float64. There
+    the card's float32 gradients must be no more than F32_GRAD_RATIO times
+    as far from the CPU's float64 gradients as the CPU's float32 ones are;
+    loss, BatchNorm statistics and the confusion matrix are held as before."""
+    lr = float(cfg["train"]["learning_rate"])
+    cpu = torch.device("cpu")
+    failed = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for seed in (1, 2):
+            images, labels = synthetic_set(n=2, h=64, w=96, seed=seed)
+            runs = {(d.type, dt): one_train_step(d, cfg, images, labels, dt)
+                    for d in (dev, cpu) for dt in (torch.float64, torch.float32)}
+            for dt in (torch.float64, torch.float32):
+                card, host = runs[dev.type, dt], runs["cpu", dt]
+                sd_g, sd_c = card["sd"], host["sd"]
+                stats = [k for k in sd_c if k.endswith(("running_mean", "running_var"))]
+                params = [k for k in sd_c if k not in stats
+                          and not k.endswith("num_batches_tracked")]
+                got = dict(
+                    loss=abs(card["loss"] - host["loss"]),
+                    grads=rel_l2(card["grads"], host["grads"]),
+                    grad_norm=abs(card["norm"] / host["norm"] - 1),
+                    stats=max(rel_l2(sd_g[k], sd_c[k]) for k in stats),
+                    params=max(float((sd_g[k] - sd_c[k]).abs().max())
+                               for k in params) / lr,
+                    cm_l1=int((card["cm"] - host["cm"]).abs().sum()))
+                print(f"train step card vs CPU ({dt}, batch seed {seed}, "
+                      f"2x64x96, TF32 off, pad only): loss {card['loss']!r} vs "
+                      f"{host['loss']!r}; grad_norm {card['norm']!r} vs "
+                      f"{host['norm']!r}; " + json.dumps(got), flush=True)
+                if dt == torch.float64:
+                    bad = {k: v for k, v in got.items()
+                           if k != "cm_l1" and v > F64_TOL[k]}
+                    if bad or got["cm_l1"]:
+                        failed.append(f"float64, batch seed {seed}: {got}")
+                    continue
+                ref = runs["cpu", torch.float64]["grads"]
+                err_card = rel_l2(card["grads"], ref)
+                err_cpu = rel_l2(host["grads"], ref)
+                print(f"train step, float32 gradients against the CPU's float64 "
+                      f"(batch seed {seed}): the card's {err_card!r}, the CPU's "
+                      f"{err_cpu!r}", flush=True)
+                if (got["loss"] > 1e-5 or got["stats"] > 1e-4
+                        or got["cm_l1"] > 2e-3 * int(host["cm"].sum())
+                        or err_card > F32_GRAD_RATIO * err_cpu):
+                    failed.append(f"float32, batch seed {seed}: {got}, "
+                                  f"{err_card} vs {err_cpu} from float64")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if failed:
+        raise AssertionError("the card's train step disagrees with the "
+                             "CPU's: " + "; ".join(failed))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -386,11 +707,16 @@ def main() -> int:
     with open(CONFIG) as f:
         cfg = json.load(f)
     b1 = check_b1(dev)
-    b1["launches"] = run_slice(dev, cfg)
+    b2 = check_b2(dev)
+    run_slice(dev, cfg)
     card_vs_cpu(dev, cfg)
+    launches = run_train_slice(dev, cfg)
+    train_card_vs_cpu(dev, cfg)
+    b1["launches"], b2["launches"] = launches["fu_hist"], launches["fu_grad"]
 
-    print("kernel B1 fu_hist: ported (CUDA C++, sm_90a)")
-    print(json.dumps({"kernels": [b1]}))
+    print("kernels B1 fu_hist and B2 fu_grad: ported (CUDA C++, sm_90a); "
+          "launches counted over train_steps")
+    print(json.dumps({"kernels": [b1, b2]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

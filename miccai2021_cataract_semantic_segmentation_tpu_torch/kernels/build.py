@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into `build/kernels/<name>-<hash>.so` under the checkout
 root (a directory .gitignore lists), then loaded with ctypes. The hash
-covers the source and the flags, so an edited source is rebuilt at its
-next use. Nothing is built at import: a library is built at the first call
+covers the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header is rebuilt at its next use. Nothing is built at import: a library is built at the first call
 of its wrapper, or ahead of time by `build()`, which starts one `nvcc` per
 source, all at once.
 """
@@ -23,7 +23,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("fu_hist",)
+SOURCES = ("fu_hist", "fu_grad")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -42,6 +42,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -40,11 +40,11 @@
 // Built with -fmad=false: every multiply and add rounds on its own (no
 // contraction into FMA). Matrix products elsewhere may round in another
 // order, which moves an error sitting on a bucket edge by one bucket now
-// and then; the counts per row do not change.
+// and then; the counts per row do not change. The per-pixel arithmetic
+// lives in fu_common.cuh, which B2 (fu_grad.cu) shares, so the backward
+// reads the gradient of the very bucket this kernel counted.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fu_common.cuh"
 
 namespace {
 
@@ -61,35 +61,9 @@ struct Params {
   const float* w_w1;
   int* out;             // (R, 2, B)
   int n, n_cls, n_rows, hs, ws, h_pad, w_pad;
-  int n_buckets, chunk, n_chunks;
-  int adaptive, a_half, a_shift, a_q0;
-  float a_emin, inv_b;
-  int dither;
-  uint32_t seed;
+  int chunk, n_chunks;
+  fu::BucketMap bm;
 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ int bucket_id(float e, const Params& p) {
-  if (!p.adaptive) {
-    // float -> int truncates toward zero, as the reference's astype(int32)
-    const int b = static_cast<int>(__fmul_rn(e, static_cast<float>(p.n_buckets)));
-    return min(b, p.n_buckets - 1);
-  }
-  const float u = fminf(e, __fsub_rn(1.0f, e));
-  const float uc = fmaxf(u, p.a_emin);
-  int q = static_cast<int>(static_cast<uint32_t>(__float_as_int(uc)) >> p.a_shift)
-          - p.a_q0;
-  q = min(q, p.a_half - 1);
-  return e < 0.5f ? q : (p.n_buckets - 1) - q;
-}
 
 template <int MAXC>
 __global__ void __launch_bounds__(kThreads)
@@ -98,7 +72,7 @@ fu_hist_kernel(const Params p) {
   const int scale = blockIdx.y / p.n_chunks;
   const int c0 = (blockIdx.y % p.n_chunks) * p.chunk;
   const int c1 = min(c0 + p.chunk, p.n_cls);
-  const int nb = p.n_buckets;
+  const int nb = p.bm.n_buckets;
   const int bins = (c1 - c0) * 2 * nb;
   for (int i = threadIdx.x; i < bins; i += blockDim.x) hist[i] = 0;
   __syncthreads();
@@ -113,49 +87,19 @@ fu_hist_kernel(const Params p) {
     const long long t = i / p.w_pad;
     const int y = static_cast<int>(t % p.h_pad);
     const int img = static_cast<int>(t / p.h_pad);
-    const int r0 = p.h_lo[y], r1 = min(r0 + 1, p.hs - 1);
-    const int s0 = p.w_lo[x], s1 = min(s0 + 1, p.ws - 1);
-    const float a0 = p.h_w0[y], a1 = p.h_w1[y];
-    const float b0 = p.w_w0[x], b1 = p.w_w1[x];
+    const fu::Taps taps = fu::pixel_taps(y, x, p.hs, p.ws, p.h_lo, p.h_w0,
+                                         p.h_w1, p.w_lo, p.w_w0, p.w_w1);
     const float* base =
         p.logits + (static_cast<long long>(img) * p.n_rows + scale * p.n_cls) * plane;
-
     float z[MAXC];
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < p.n_cls) {
-        const float* lc = base + c * plane;
-        const float u0 = __fadd_rn(__fmul_rn(a0, __ldg(lc + r0 * p.ws + s0)),
-                                   __fmul_rn(a1, __ldg(lc + r1 * p.ws + s0)));
-        const float u1 = __fadd_rn(__fmul_rn(a0, __ldg(lc + r0 * p.ws + s1)),
-                                   __fmul_rn(a1, __ldg(lc + r1 * p.ws + s1)));
-        z[c] = __fadd_rn(__fmul_rn(b0, u0), __fmul_rn(b1, u1));
-        m = fmaxf(m, z[c]);
-      }
-    }
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < p.n_cls) {
-        z[c] = expf(__fsub_rn(z[c], m));
-        sum = __fadd_rn(sum, z[c]);
-      }
-    }
-    float shift = 0.0f;
-    if (p.dither) {
-      const uint32_t h = fmix32(static_cast<uint32_t>(i) ^ p.seed);
-      const float d = __fmul_rn(static_cast<float>(h & 0xFFFFu), 1.0f / 65536.0f);
-      shift = __fmul_rn(__fsub_rn(d, 0.5f), p.inv_b);
-    }
+    float sum;
+    fu::softmax_terms<MAXC>(base, plane, p.ws, p.n_cls, taps, z, sum);
+    const float shift = p.bm.dither ? fu::dither_shift(i, p.bm) : 0.0f;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       if (c >= c0 && c < c1) {
-        const float prob = __fdiv_rn(z[c], sum);
         const bool fg = lbl == c;
-        float e = fabsf(__fsub_rn(fg ? 1.0f : 0.0f, prob));
-        if (p.dither) e = __fadd_rn(e, shift);
-        const int b = bucket_id(e, p);
+        const int b = fu::pixel_bucket(__fdiv_rn(z[c], sum), fg, shift, p.bm);
         atomicAdd(&hist[(c - c0) * 2 * nb + (fg ? nb : 0) + b], 1);
       }
     }
@@ -193,10 +137,6 @@ cudaError_t launch(const Params& p, int n_scales, size_t smem,
 }  // namespace
 
 extern "C" {
-
-const char* cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // Returns a cudaError_t: 0 when the launch was accepted.
 int fu_hist_fwd(const float* logits, const int* labels, const int* h_lo,
@@ -236,17 +176,17 @@ int fu_hist_fwd(const float* logits, const int* labels, const int* h_lo,
   p.ws = ws;
   p.h_pad = h_pad;
   p.w_pad = w_pad;
-  p.n_buckets = n_buckets;
   p.n_chunks = n_chunks;
   p.chunk = (n_cls + n_chunks - 1) / n_chunks;
-  p.adaptive = adaptive;
-  p.a_half = a_half;
-  p.a_shift = a_shift;
-  p.a_q0 = a_q0;
-  p.a_emin = a_emin;
-  p.inv_b = inv_b;
-  p.dither = dither;
-  p.seed = static_cast<uint32_t>(seed);
+  p.bm.n_buckets = n_buckets;
+  p.bm.adaptive = adaptive;
+  p.bm.a_half = a_half;
+  p.bm.a_shift = a_shift;
+  p.bm.a_q0 = a_q0;
+  p.bm.a_emin = a_emin;
+  p.bm.inv_b = inv_b;
+  p.bm.dither = dither;
+  p.bm.seed = static_cast<uint32_t>(seed);
   const size_t smem = static_cast<size_t>(p.chunk) * per_class;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_cls <= 8) return launch<8>(p, n_scales, smem, s, sms);

@@ -45,7 +45,10 @@ class FuMats:
     (int32) are the first source index of each output row/column and
     h_w0/h_w1, w_w0/w_w1 (float32) the matrix entries at that index and the
     next one: the only nonzero entries of a bilinear row. Pad rows and
-    columns are all zero (taps 0, 0.0, 0.0)."""
+    columns are all zero (taps 0, 0.0, 0.0). For the transposed
+    interpolation of B2, h_beg/h_end (hs,) and w_beg/w_end (ws,) (int32)
+    bound the output rows/columns with a nonzero entry in each source
+    row/column (empty, 0 and 0, where none has)."""
     mh: torch.Tensor
     mw: torch.Tensor
     h_lo: torch.Tensor
@@ -54,6 +57,10 @@ class FuMats:
     w_lo: torch.Tensor
     w_w0: torch.Tensor
     w_w1: torch.Tensor
+    h_beg: torch.Tensor
+    h_end: torch.Tensor
+    w_beg: torch.Tensor
+    w_end: torch.Tensor
 
 
 def _taps(m: np.ndarray):
@@ -66,6 +73,18 @@ def _taps(m: np.ndarray):
     return lo.astype(np.int32), m[rows, lo], w1.astype(np.float32)
 
 
+def _ranges(m: np.ndarray):
+    """(beg, end) int32 per column of an (n_out, n_in) bilinear matrix: the
+    rows with a nonzero entry in that column, which are contiguous."""
+    nz = m != 0
+    hit = nz.any(0)
+    beg = np.where(hit, nz.argmax(0), 0)
+    end = np.where(hit, m.shape[0] - nz[::-1].argmax(0), 0)
+    if not all(nz[b:e, j].all() for j, (b, e) in enumerate(zip(beg, end))):
+        raise ValueError("bilinear matrix with non-contiguous columns")
+    return beg.astype(np.int32), end.astype(np.int32)
+
+
 @functools.lru_cache(maxsize=32)
 def fu_mats(hs: int, ws: int, out_hw: tuple[int, int], h_pad: int,
             w_pad: int, align: bool, device: torch.device) -> FuMats:
@@ -76,18 +95,20 @@ def fu_mats(hs: int, ws: int, out_hw: tuple[int, int], h_pad: int,
                 ((0, h_pad - oh), (0, 0))).astype(np.float32)
     mw_t = np.pad(interp_matrix(ws, ow, align),
                   ((0, w_pad - ow), (0, 0))).astype(np.float32)
-    arrays = (mh, np.ascontiguousarray(mw_t.T), *_taps(mh), *_taps(mw_t))
+    arrays = (mh, np.ascontiguousarray(mw_t.T), *_taps(mh), *_taps(mw_t),
+              *_ranges(mh), *_ranges(mw_t))
     # built outside inference mode so the cached tensors are usable anywhere
     with torch.inference_mode(False):
         return FuMats(*(torch.as_tensor(a, device=device) for a in arrays))
 
 
-def fu_histogram_plain(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats,
-                       *, n_cls: int, n_buckets: int, edges: str = "uniform",
-                       seed: int = 0, dither: bool = False) -> torch.Tensor:
-    """Plain PyTorch B1: einsum interpolation (rows, then columns),
-    softmax, errors, bucket ids, and an int64 bincount over
-    row*2B + fg*B + bid of the counted pixels."""
+def plain_fields(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats, *,
+                 n_cls: int, n_buckets: int, edges: str = "uniform",
+                 seed: int = 0, dither: bool = False):
+    """What B1 and B2 compute per (pixel, class row), in plain PyTorch:
+    einsum interpolation (rows, then columns) and softmax -> p
+    (N, S, C, H, W); fg (N, C, H, W) and keep = label >= 0 (N, H, W); the
+    bucket ids (N, S, C, H, W) int64 of e = |fg - p * keep| (+ dither)."""
     n, r_rows = ls.shape[:2]
     n_scales = r_rows // n_cls
     h_pad, w_pad = labels.shape[1:]
@@ -103,6 +124,19 @@ def fu_histogram_plain(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats,
         idx = torch.arange(n * h_pad * w_pad, device=ls.device)
         e = e + dither_shift(idx, seed, n_buckets).reshape(n, 1, 1, h_pad, w_pad)
     bid = make_bid_fn(n_buckets, edges)(e).long()            # (N, S, C, H, W)
+    return p, fg, keep, bid
+
+
+def fu_histogram_plain(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats,
+                       *, n_cls: int, n_buckets: int, edges: str = "uniform",
+                       seed: int = 0, dither: bool = False) -> torch.Tensor:
+    """Plain PyTorch B1: `plain_fields`, then an int64 bincount over
+    row*2B + fg*B + bid of the counted pixels."""
+    _, fg, keep, bid = plain_fields(ls, labels, mats, n_cls=n_cls,
+                                    n_buckets=n_buckets, edges=edges,
+                                    seed=seed, dither=dither)
+    r_rows = ls.shape[1]
+    n_scales = r_rows // n_cls
     row = torch.arange(r_rows, device=ls.device).reshape(1, n_scales, n_cls, 1, 1)
     key = row * (2 * n_buckets) + fg[:, None].long() * n_buckets + bid
     key = key[keep[:, None, None].expand_as(key)]
@@ -110,8 +144,23 @@ def fu_histogram_plain(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats,
     return counts.to(torch.int32).reshape(r_rows, 2, n_buckets)
 
 
+def bucket_params(n_buckets: int, edges: str, seed: int) -> tuple:
+    """(half, shift, q0, e_min, seed as int32, 1/B as float32) of the
+    kernels' bucket map."""
+    if edges == "uniform":
+        half, shift, q0, e_min = 0, 0, 0, 0.0
+    else:
+        half, shift, q0, e_min = adaptive_params(n_buckets, edges)
+    seed32 = (int(seed) & 0xFFFFFFFF) - ((int(seed) & 0x80000000) << 1)
+    return half, shift, q0, float(e_min), seed32, float(np.float32(1.0 / n_buckets))
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 class FuHistogram:
@@ -143,20 +192,16 @@ class FuHistogram:
         h_pad, w_pad = labels.shape[1:]
         out = torch.zeros((r_rows, 2, n_buckets), dtype=torch.int32,
                           device=ls.device)
-        if edges == "uniform":
-            half, shift, q0, e_min = 0, 0, 0, 0.0
-        else:
-            half, shift, q0, e_min = adaptive_params(n_buckets, edges)
-        seed32 = (int(seed) & 0xFFFFFFFF) - ((int(seed) & 0x80000000) << 1)
+        half, shift, q0, e_min, seed32, inv_b = bucket_params(n_buckets,
+                                                              edges, seed)
         lib = _fu_lib()
         err = lib.fu_hist_fwd(
             _ptr(ls), _ptr(labels), _ptr(mats.h_lo), _ptr(mats.h_w0),
             _ptr(mats.h_w1), _ptr(mats.w_lo), _ptr(mats.w_w0),
             _ptr(mats.w_w1), _ptr(out), n, r_rows // n_cls, n_cls, hs, ws,
             h_pad, w_pad, n_buckets, int(edges != "uniform"), half, shift,
-            q0, float(e_min), int(dither), seed32,
-            float(np.float32(1.0 / n_buckets)), ls.device.index,
-            ctypes.c_void_p(torch.cuda.current_stream(ls.device).cuda_stream))
+            q0, e_min, int(dither), seed32, inv_b, ls.device.index,
+            stream_ptr(ls.device))
         if err != 0:
             raise RuntimeError(f"fu_hist launch failed: "
                                f"{build.error_string(lib, err)} ({err})")
@@ -165,9 +210,11 @@ class FuHistogram:
 
 
 def _check(ls, labels, mats, n_cls):
+    """Raise on what the kernels (B1 and B2) do not take."""
     tensors = {"ls": ls, "labels": labels, "h_lo": mats.h_lo,
                "h_w0": mats.h_w0, "h_w1": mats.h_w1, "w_lo": mats.w_lo,
-               "w_w0": mats.w_w0, "w_w1": mats.w_w1}
+               "w_w0": mats.w_w0, "w_w1": mats.w_w1, "h_beg": mats.h_beg,
+               "h_end": mats.h_end, "w_beg": mats.w_beg, "w_end": mats.w_end}
     for name, t in tensors.items():
         if t.device != ls.device:
             raise ValueError(f"{name} is on {t.device}, ls on {ls.device}")
@@ -176,7 +223,7 @@ def _check(ls, labels, mats, n_cls):
     for name in ("ls", "h_w0", "h_w1", "w_w0", "w_w1"):
         if tensors[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {tensors[name].dtype}")
-    for name in ("labels", "h_lo", "w_lo"):
+    for name in ("labels", "h_lo", "w_lo", "h_beg", "h_end", "w_beg", "w_end"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
     if ls.dim() != 4 or labels.dim() != 3 or ls.shape[0] != labels.shape[0]:

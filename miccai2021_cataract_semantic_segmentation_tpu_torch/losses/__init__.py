@@ -2,8 +2,11 @@
 
 `build_loss(loss_config, task)` returns
     loss_fn(outputs: dict, labels, *, epoch=None, step=None) -> (total, terms)
-as the JAX package's does. This slice ports the flagship route only:
-TwoScaleLoss with Lovász on both scales, `lovasz_impl: bucket`, through the
+as the JAX package's does. The total back-propagates into the stride-8
+logits through kernel B2 when they require a gradient (the train step),
+and runs forward only under `torch.inference_mode()` (the eval steps).
+This slice ports the flagship route only: TwoScaleLoss with Lovász on
+both scales, `lovasz_impl: bucket`, through the
 fused stride-8 kernel (losses/fused_lovasz.py). Every other route raises
 NotImplementedError naming its ROADMAP item.
 """
@@ -93,7 +96,7 @@ def build_loss(loss_config: dict, task: int,
     def two_scale_fn(outputs, labels, epoch=None, step=None):
         if labels.device.type != dev.type:
             raise ValueError(f"labels on {labels.device}, loss built for {dev}")
-        v = ts(outputs.get("interm_logits"), outputs["logits"], labels,
+        v = ts(outputs.get("interm_logits"), outputs.get("logits"), labels,
                interm_s8=outputs.get("interm_logits_s8"),
                final_s8=outputs.get("logits_s8"), step=step)
         return v, {"TwoScaleLoss": v}

@@ -1,17 +1,20 @@
-"""Fused two-scale bucket Lovász from stride-8 logits — forward.
+"""Fused two-scale bucket Lovász from stride-8 logits, forward and backward.
 
-Port of the forward half of the JAX package's losses/fused_lovasz.py (the
-v4 route behind `lovasz_two_scale_s8`). The bilinear align_corners=True
-upsample of both scales, the softmax, the errors and the bucket histogram
-run in kernel B1 (kernels/lovasz_hist.py: CUDA on the card, its plain
-PyTorch version on the CPU), so the full-resolution logit grids never
-exist on the card. The loss math on the counts runs in float32 as the JAX
-package does it: counts cast to f32, cumsums in descending bucket order,
-and the error sums reconstructed from bucket midpoints.
+Port of the JAX package's losses/fused_lovasz.py (the v4 route behind
+`lovasz_two_scale_s8`). The bilinear align_corners=True upsample of both
+scales, the softmax, the errors and the bucket histogram run in kernel B1
+(kernels/lovasz_hist.py), and the backward (the same probabilities and
+bucket ids, the per-bucket gradient gather, the softmax VJP and the
+transposed upsample) in kernel B2 (kernels/lovasz_grad.py): CUDA on the
+card, their plain PyTorch versions on the CPU. The full-resolution logit
+grids never exist on the card. The loss math on the counts runs in float32
+as the JAX package does it: counts cast to f32, cumsums in descending
+bucket order, and the error sums reconstructed from bucket midpoints.
 
-Forward only: the backward kernel (B2) comes with the training slice, so
-an input that requires a gradient raises instead of letting autograd
-differentiate the plain version (whose gradient is not the JAX custom VJP).
+The gradient is the JAX custom VJP (`_fu2_fwd`/`_fu2_bwd`), not autograd
+through the plain version: the per-bucket gradients g_fg/g_bg of the
+forward, scaled by the cotangent of each row's loss and rounded to bf16 as
+the TPU kernel rounds its table, are gathered by bucket id per pixel.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_grad import fu_grad
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (
     fu_histogram, fu_mats)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_edges import (
@@ -93,6 +97,56 @@ def fu_core_fwd(parts, labels, n_cls: int, out_hw: tuple[int, int],
     return torch.stack([n_fg, n_bg, n_fg * mid, n_bg * mid], dim=-1)
 
 
+def fu_core_bwd(parts, labels, table, n_cls: int, out_hw: tuple[int, int],
+                n_buckets: int, align: bool, edges: str = "uniform",
+                seed: int = 0, dither: bool = False):
+    """The JAX `_fu_core_bwd` after its table build: (R, 2, B) float32
+    table -> one float32 (N, C, hs, ws) gradient per scale, from B2."""
+    hs, ws = parts[0].shape[2:]
+    h_pad, w_pad = labels.shape[1:]
+    mats = fu_mats(hs, ws, tuple(out_hw), h_pad, w_pad, align, labels.device)
+    ls = torch.cat(parts, dim=1).to(torch.float32).contiguous()
+    dls = fu_grad(ls, labels, mats, table, n_cls=n_cls, n_buckets=n_buckets,
+                  edges=edges, seed=seed, dither=dither)
+    return dls.split(n_cls, dim=1)
+
+
+def grad_table(g_fg: torch.Tensor, g_bg: torch.Tensor,
+               ct: torch.Tensor) -> torch.Tensor:
+    """(R, 2, B) [bg, fg] gradient table: the bucket gradients scaled by
+    the cotangent of each row's loss, rounded to bf16 and back (the TPU
+    kernel's `tbl_ref[...].astype(bfloat16)`, done here so kernel and plain
+    version read the same float32 values)."""
+    ct = ct.to(torch.float32)[:, None]
+    table = torch.stack([g_bg * ct, g_fg * ct], dim=1)
+    return table.to(torch.bfloat16).to(torch.float32).contiguous()
+
+
+class _TwoScaleS8(torch.autograd.Function):
+    """(per_row (2C,), gts (2C,)) of both scales, with the JAX custom VJP:
+    B1 forward, B2 backward; `gts` and the labels get no gradient."""
+
+    @staticmethod
+    def forward(ctx, li, lf, lbl, opts):
+        n_cls, out_hw, n_buckets, edges, seed, dither, histogram = opts
+        per_row, gts, g_fg, g_bg = losses_and_tables(
+            fu_core_fwd([li, lf], lbl, n_cls, out_hw, n_buckets, True, edges,
+                        seed, dither, histogram))
+        ctx.save_for_backward(li, lf, lbl, g_fg, g_bg)
+        ctx.opts = opts
+        ctx.mark_non_differentiable(gts)
+        return per_row, gts
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        li, lf, lbl, g_fg, g_bg = ctx.saved_tensors
+        n_cls, out_hw, n_buckets, edges, seed, dither, _ = ctx.opts
+        dli, dlf = fu_core_bwd([li, lf], lbl, grad_table(g_fg, g_bg, ct),
+                               n_cls, out_hw, n_buckets, True, edges, seed,
+                               dither)
+        return dli.to(li.dtype), dlf.to(lf.dtype), None, None
+
+
 def norm_dither_seed(dither_seed) -> tuple[int, bool]:
     """(seed, dither flag): None disables dither; an int (or 0-dim tensor)
     enables it with that per-step seed."""
@@ -124,15 +178,13 @@ def fused_two_scale_bucket_lovasz_s8(interm_logits_s8, final_logits_s8,
                                      dither_seed=None, *,
                                      histogram=fu_histogram) -> torch.Tensor:
     """TwoScaleLoss(Lovász, Lovász) at full label resolution from NCHW
-    stride-8 logits with the align_corners=True upsample fused into B1.
+    stride-8 logits with the align_corners=True upsample fused into B1 and
+    its backward into B2.
 
     `labels` (N, H, W) integer, values 0..C (C = ignore id, background for
     every class unless it is `classes_to_ignore`). `histogram` as in
-    `fu_core_fwd`. Returns a 0-dim f32."""
-    if interm_logits_s8.requires_grad or final_logits_s8.requires_grad:
-        raise NotImplementedError(
-            "the fused bucket Lovász is forward-only until its backward "
-            "kernel B2 is ported (ROADMAP Queue B item 2)")
+    `fu_core_fwd`. Returns a 0-dim f32 that back-propagates into both logit
+    tensors."""
     bucket_split(n_buckets)
     if dither_seed is not None and edges != "uniform":
         warnings.warn(
@@ -143,9 +195,9 @@ def fused_two_scale_bucket_lovasz_s8(interm_logits_s8, final_logits_s8,
     c = final_logits_s8.shape[1]
     lbl = pad_labels(labels, classes_to_ignore)
     seed, dither = norm_dither_seed(dither_seed)
-    per_row, gts, _, _ = losses_and_tables(
-        fu_core_fwd([interm_logits_s8, final_logits_s8], lbl, c, (h, w),
-                    n_buckets, True, edges, seed, dither, histogram))
+    per_row, gts = _TwoScaleS8.apply(
+        interm_logits_s8, final_logits_s8, lbl,
+        (c, (h, w), n_buckets, edges, seed, dither, histogram))
     present = (gts > 0).to(torch.float32)
     pr_i, pr_f = present[:c], present[c:]
     loss_i = torch.sum(per_row[:c] * pr_i) / torch.clamp_min(torch.sum(pr_i), 1.0)

@@ -1,13 +1,15 @@
 """Shared NCHW building blocks with the reference's torch layer semantics.
 
 Port of the JAX package's models/layers.py. BatchNorm uses eps 1e-5 and
-torch momentum 0.1 (flax momentum 0.9 is torch momentum 0.1). Modules keep
-the reference's torch state-dict names, so a published checkpoint loads
-with `load_state_dict(strict=True)`.
+torch momentum 0.1 (flax momentum 0.9 is torch momentum 0.1), and updates
+its running variance in train mode with the biased batch variance, as
+flax does (`BatchNorm2d`). Modules keep the reference's torch state-dict
+names, so a published checkpoint loads with `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
@@ -31,8 +33,34 @@ def to_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(acc_dtype(x))
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode update of `running_var` uses the
+    biased batch variance, as flax's `BatchNorm` updates `batch_stats`.
+
+    torch's update is running = (1 - m) running + m var * n / (n - 1) over
+    the n values per channel; this one subtracts m var / (n - 1), which is
+    (running_new - (1 - m) running_old) / n, after torch's fused kernel ran,
+    so both modes keep cuDNN's kernel and the normalisation (which uses the
+    biased variance in both frameworks) is untouched. The kernel updates a
+    copy of the buffer, which autograd keeps for the backward; the buffer
+    itself takes the corrected value."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(
+                var - (var - (1.0 - self.momentum) * self.running_var) / n)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBN(nn.Sequential):

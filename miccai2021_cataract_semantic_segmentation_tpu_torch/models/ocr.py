@@ -96,6 +96,10 @@ class SpatialOCR(nn.Module):
         return self.conv_bn_dropout(torch.cat([ctx, feats], dim=1))
 
 
+# the full-size outputs a forward computes unless told otherwise
+FULL_RES = ("logits", "interm_logits")
+
+
 def _ocr_dilate_stages(out_stride: int) -> tuple[bool, bool, bool]:
     """The out-stride table of the Bottleneck backbones."""
     return {8: (False, True, True), 16: (False, False, True),
@@ -119,13 +123,15 @@ class OCRNet(nn.Module):
         self.spatial_ocr_head = SpatialOCR(512, 256, 512, dropout)
         self.conv_out = nn.Conv2d(512, num_classes, 1, bias=True)
 
-    def forward(self, x: torch.Tensor, full_res_interm: bool = True) -> dict:
+    def forward(self, x: torch.Tensor,
+                full_res: tuple[str, ...] = FULL_RES) -> dict:
         """NCHW input -> output dict (NCHW, >= f32 logits).
 
-        `full_res_interm=False` leaves out `interm_logits`, the full-size
-        upsample of the interm logits that the eval steps never read (the
-        fused loss consumes `interm_logits_s8`); everything else is the
-        same."""
+        `full_res` names the full-size upsamples to compute, of `logits`
+        and `interm_logits`. The eval steps leave out `interm_logits` (the
+        fused loss consumes `interm_logits_s8`); a train step whose metrics
+        read the stride-8 logits leaves out both, as XLA drops them from the
+        JAX program. Everything else is the same."""
         in_hw = x.shape[2:]
         feats = self.backbone(x)
         interm_logits = self.interm_prediction_head(feats["layer3"])
@@ -133,11 +139,11 @@ class OCRNet(nn.Module):
         context = spatial_gather(pix, interm_logits)
         logits = self.conv_out(self.spatial_ocr_head(pix, context))
         out = {
-            "logits": to_f32(upsample_like(logits, in_hw)),
             "logits_s8": to_f32(logits),
             "interm_logits_s8": to_f32(interm_logits),
             "deep_features": feats["layer4"],
         }
-        if full_res_interm:
-            out["interm_logits"] = to_f32(upsample_like(interm_logits, in_hw))
+        for key, lg in (("logits", logits), ("interm_logits", interm_logits)):
+            if key in full_res:
+                out[key] = to_f32(upsample_like(lg, in_hw))
         return out

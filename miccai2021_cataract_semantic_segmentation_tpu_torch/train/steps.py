@@ -1,13 +1,14 @@
-"""The eval steps: uint8 batch -> preprocessing -> forward -> (loss) ->
-confusion matrix.
+"""The train step and the eval steps.
 
-Port of `eval_preprocess`, `make_eval_step` and `make_eval_loss_step` from
-the JAX package's train/steps.py. The steps are eager functions under
-`torch.inference_mode()`. They take the JAX package's inputs — uint8 NHWC
-images and uint8 NHW labels, numpy or torch — and return NCHW float32
-logits. `precision="bf16"` (the JAX package's default) runs the forward
-under bf16 autocast; any other value runs it in the model's parameter
-dtype (float32, or float64 in the parity tests).
+Port of `make_train_step`, `eval_preprocess`, `make_eval_step` and
+`make_eval_loss_step` from the JAX package's train/steps.py. The steps are
+eager functions; each puts the model in the mode it needs (train mode with
+batch-statistics BatchNorm, or eval mode). They take the JAX package's
+inputs — uint8 NHWC images and uint8 NHW labels, numpy or torch — and the
+eval steps return NCHW float32 logits. `precision="bf16"` (the JAX
+package's default) runs the forward under bf16 autocast; any other value
+runs it in the model's parameter dtype (float32, or float64 in the parity
+tests).
 """
 from __future__ import annotations
 
@@ -16,9 +17,15 @@ from dataclasses import dataclass
 import torch
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
+    DeviceAugmentSpec)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import (
-    IMAGENET_MEAN, IMAGENET_STD, pad_reflect_hw)
+    IMAGENET_MEAN, IMAGENET_STD, AugmentDraws, augment_batch, draw_augment,
+    pad_reflect_hw, to_unit)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import confusion_matrix
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import downsample_labels
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
+    TrainState, global_norm)
 
 
 @dataclass(frozen=True)
@@ -43,7 +50,7 @@ def eval_preprocess(images_u8: torch.Tensor, spec: EvalSpec | None,
                     labels_u8: torch.Tensor | None = None):
     """uint8 NHWC -> float32 NCHW in [0, 1], the 2px vertical reflect pad
     and ImageNet normalise per `spec`; labels (NHW) -> padded int64."""
-    x = images_u8.to(torch.float32) / 255.0
+    x = to_unit(images_u8)
     pad = spec is not None and spec.pad
     if pad:
         x = pad_reflect_hw(x)
@@ -60,11 +67,11 @@ def eval_preprocess(images_u8: torch.Tensor, spec: EvalSpec | None,
     return x, lbl
 
 
-def _forward(model, x, precision: str) -> dict:
+def _forward(model, x, precision: str, full_res=("logits",)) -> dict:
     if precision == "bf16":
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
-            return model(x, full_res_interm=False)
-    return model(x.to(next(model.parameters()).dtype), full_res_interm=False)
+            return model(x, full_res=full_res)
+    return model(x.to(next(model.parameters()).dtype), full_res=full_res)
 
 
 def _to_device(a, dev: torch.device) -> torch.Tensor:
@@ -79,6 +86,7 @@ def make_eval_step(spec: EvalSpec | None, num_classes: int,
 
     @torch.inference_mode()
     def step(model, images_u8, labels_u8):
+        model.eval()
         x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
                                  _to_device(labels_u8, dev))
         logits = _forward(model, x, precision)["logits"]
@@ -96,11 +104,87 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
 
     @torch.inference_mode()
     def step(model, images_u8, labels_u8, epoch):
+        model.eval()
         x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
                                  _to_device(labels_u8, dev))
         outputs = _forward(model, x, precision)
         total, _ = loss_fn(outputs, lbl, epoch=epoch)
         logits = outputs["logits"]
         return logits, lbl, confusion_matrix(logits, lbl), total
+
+    return step
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
+                               f"item {item})")
+
+
+def step_draws(spec: DeviceAugmentSpec, n: int, seed: int,
+               step: int) -> AugmentDraws:
+    """The augmentation draws of train step `step`: a generator seeded from
+    (seed, step) alone, so a step's draws do not depend on the steps before
+    it (the role of the JAX step's `fold_in(rng, state.step)`)."""
+    gen = torch.Generator().manual_seed(
+        (int(seed) & 0xFFFFFFFF) << 32 | (int(step) & 0xFFFFFFFF))
+    return draw_augment(spec, n, gen)
+
+
+def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
+                    device: str | torch.device = "cuda",
+                    precision: str = "bf16", train_metrics: str = "full",
+                    seed: int = 0, has_point_head: bool = False, mesh=None,
+                    semi: dict | None = None):
+    """step(state, images_u8, labels_u8, epoch, draws=None) -> metrics.
+
+    One update of `state` (train/state.py): the device augmentation of
+    `spec` (draws from `step_draws(spec, n, seed, state.step)` unless
+    given), the train-mode forward (bf16 autocast when `precision` is
+    "bf16"), `loss_fn(outputs, labels, epoch=, step=state.step)` (the step
+    seeds the Lovász dither), the backward, the optional global-norm clip
+    and the optimiser update at `schedule(state.step)`; then `state.step`
+    advances. Metrics, left on the device: `loss`, the loss's terms,
+    `confusion_matrix` and `grad_norm` (the global L2 norm of the unclipped
+    gradients). `train_metrics="s8"` counts the confusion matrix from the
+    stride-8 logits against `downsample_labels`, and the forward then
+    computes no full-resolution upsample at all; "full" counts it from the
+    full-resolution logits."""
+    if semi is not None:
+        raise _not_ported("semi-supervised training", "11")
+    if has_point_head:
+        raise _not_ported("the PointRend point head", "12")
+    if mesh is not None:
+        raise _not_ported("training over several GPUs", "15")
+    if train_metrics not in ("s8", "full"):
+        raise ValueError(f"train_metrics must be 's8' or 'full', got "
+                         f"'{train_metrics}'")
+    dev = resolve_device(device)
+    full_res = () if train_metrics == "s8" else ("logits",)
+
+    def step(state: TrainState, images_u8, labels_u8, epoch,
+             draws: AugmentDraws | None = None) -> dict:
+        model = state.model
+        images, labels = _to_device(images_u8, dev), _to_device(labels_u8, dev)
+        if draws is None:
+            draws = step_draws(spec, images.shape[0], seed, state.step)
+        x, lbl = augment_batch(images, labels, spec, draws)
+        x = x.permute(0, 3, 1, 2).contiguous()
+        model.train()
+        outputs = _forward(model, x, precision, full_res)
+        total, terms = loss_fn(outputs, lbl, epoch=epoch, step=state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        with torch.no_grad():
+            grad_norm = global_norm(grads)
+            state.apply_gradients(grads)
+            if train_metrics == "s8":
+                s8 = outputs["logits_s8"]
+                cm = confusion_matrix(s8, downsample_labels(lbl, s8.shape[2:]))
+            else:
+                cm = confusion_matrix(outputs["logits"], lbl)
+        return {"loss": total.detach(),
+                **{k: v.detach() for k, v in terms.items()},
+                "confusion_matrix": cm, "grad_norm": grad_norm}
 
     return step

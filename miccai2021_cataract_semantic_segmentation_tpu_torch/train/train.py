@@ -1,0 +1,88 @@
+"""Train steps over index batches — the numeric core of the JAX Trainer's
+`train` epoch loop (train/trainer.py:467-540).
+
+`train_steps` builds the loss, the device spec, the LR schedule, the
+optimiser and the train step from a run config, runs the given index
+batches through the step, accumulates the confusion matrix and the loss on
+the device, and returns the epoch's train metrics. The samplers, the
+prefetcher, TensorBoard and checkpoints come with the Trainer (ROADMAP
+Queue A items 7-8).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
+    mean_iou_breakdown, pixel_accuracy)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+
+
+def uses_bucket_lovasz(loss_cfg) -> bool:
+    """True when any nested loss config selects the fused bucket Lovász."""
+    if not isinstance(loss_cfg, dict):
+        return False
+    if loss_cfg.get("lovasz_impl") == "bucket":
+        return True
+    return any(uses_bucket_lovasz(v) for v in loss_cfg.values()
+               if isinstance(v, dict))
+
+
+def train_metrics_source(config: dict) -> str:
+    """The Trainer's train-metric source: `train_metrics` when the config
+    sets it, else "s8" with the fused bucket Lovász and "full" otherwise."""
+    return config.get("train_metrics") or \
+        ("s8" if uses_bucket_lovasz(config.get("loss") or {}) else "full")
+
+
+def train_steps(model: torch.nn.Module, config: dict, images: np.ndarray,
+                labels: np.ndarray, batches, *,
+                device: str | torch.device = "cuda", seed: int = 0,
+                epoch: int = 0) -> dict:
+    """Train `model` in place on uint8 `images` (n, H, W, 3) and task-space
+    uint8 `labels` (n, H, W), one step per index batch of `batches`, under
+    `config` (graph/loss/data/train/precision keys of a run config). The
+    LR schedule counts `len(batches)` steps per epoch.
+
+    Returns the epoch's train metrics as the Trainer reports them (`loss`,
+    the mean of the step losses; `miou` and `pa` of the summed confusion
+    matrix), plus `step_losses`, `confusion_matrix` (int64), `seconds` and
+    `frames_per_s` (host clock around the steps, ended by a device
+    synchronise), and the `state` (train/state.py) after the last step."""
+    dev = resolve_device(device)
+    task = int(config["data"]["experiment"])
+    loss_cfg = config.get("loss") or {"name": "CrossEntropyLoss"}
+    loss_fn = build_loss(loss_cfg, task, dev)
+    spec = device_spec(config["data"].get("transforms", []))
+    state = create_train_state(model, config["train"],
+                               make_schedule(config["train"], len(batches)))
+    step = make_train_step(loss_fn, spec, task, device=dev,
+                           precision=config.get("precision", "bf16"),
+                           train_metrics=train_metrics_source(config),
+                           seed=seed)
+    losses, cm_total = [], None
+    n_frames = 0
+    t0 = time.perf_counter()
+    for idx in batches:
+        m = step(state, images[idx], labels[idx], epoch)
+        losses.append(m["loss"])
+        cm_total = m["confusion_matrix"] if cm_total is None \
+            else cm_total + m["confusion_matrix"]
+        n_frames += len(idx)
+    step_losses = torch.stack(losses).double().cpu().numpy()   # synchronises
+    seconds = time.perf_counter() - t0
+    cm = cm_total.cpu().numpy().astype(np.int64)
+    bd = mean_iou_breakdown(cm, task)
+    pa, _ = pixel_accuracy(cm)
+    return {"epoch": epoch, "loss": float(step_losses.mean()),
+            "miou": float(bd["miou"]), "pa": float(pa),
+            "step_losses": step_losses.tolist(), "confusion_matrix": cm,
+            "seconds": seconds, "frames_per_s": n_frames / seconds,
+            "state": state}

@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX, flax, optax or the JAX
-package, its entry points refuse to run on a missing card unless asked for
-the CPU, and its CPU path launches no kernel."""
+package (its validation and train paths run with them blocked), its entry
+points refuse to run on a missing card unless asked for the CPU, and its
+CPU path launches no kernel."""
 import ast
 import json
 import pathlib
@@ -15,8 +16,10 @@ import torch
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS, reset_launches
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
-    eval_spec, make_eval_loss_step, make_eval_step)
+    eval_spec, make_eval_loss_step, make_eval_step, make_train_step)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import (
     load_config, validate)
 
@@ -57,10 +60,15 @@ model = build_model(cfg["graph"], 2, device="cpu")
 step = make_eval_loss_step(build_loss(cfg["loss"], 2, "cpu"),
                            eval_spec(cfg["data"]["transforms"]), "cpu", "fp32")
 rng = np.random.default_rng(0)
-_, _, cm, loss = step(model, rng.integers(0, 256, (1, 30, 40, 3), dtype=np.uint8),
-                      rng.integers(0, 18, (1, 30, 40), dtype=np.uint8), 0)
+images = rng.integers(0, 256, (2, 30, 40, 3), dtype=np.uint8)
+labels = rng.integers(0, 18, (2, 30, 40), dtype=np.uint8)
+_, _, cm, loss = step(model, images[:1], labels[:1], 0)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
+res = train_steps(model, dict(cfg, precision="fp32"), images, labels,
+                  [np.array([0, 1])], device="cpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
+                  "train_loss": res["loss"],
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
 """
@@ -73,7 +81,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["modules"]) >= 20
     assert np.isfinite(res["loss"]) and res["cm"] > 0
-    assert res["launches"] == {"fu_hist": 0}
+    assert np.isfinite(res["train_loss"])
+    assert res["launches"] == {"fu_hist": 0, "fu_grad": 0}
     assert res["leaked"] == []
 
 
@@ -102,11 +111,19 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", ["build_model", "build_loss",
                                    "make_eval_step", "make_eval_loss_step",
-                                   "validate"])
+                                   "validate", "make_train_step", "train_steps"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
     spec = eval_spec(CONFIG["data"]["transforms"])
+    rng = np.random.default_rng(0)
     calls = {
+        "make_train_step": lambda: make_train_step(
+            build_loss(CONFIG["loss"], 2, "cpu"),
+            device_spec(CONFIG["data"]["transforms"]), 2),
+        "train_steps": lambda: train_steps(
+            build_model(CONFIG["graph"], 2, device="cpu"), CONFIG,
+            rng.integers(0, 256, (2, 8, 8, 3), dtype=np.uint8),
+            rng.integers(0, 18, (2, 8, 8), dtype=np.uint8), [np.array([0, 1])]),
         "build_model": lambda: build_model(CONFIG["graph"], 2),
         "build_loss": lambda: build_loss(CONFIG["loss"], 2),
         "make_eval_step": lambda: make_eval_step(spec, 17),
@@ -128,7 +145,7 @@ def test_cpu_path_launches_no_kernel():
                    rng.integers(0, 18, (3, 30, 40), dtype=np.uint8),
                    device="cpu", batch_size=2)
     assert np.isfinite(res["valid_loss"])
-    assert {k: v.launches for k, v in KERNELS.items()} == {"fu_hist": 0}
+    assert {k: v.launches for k, v in KERNELS.items()} == {"fu_hist": 0, "fu_grad": 0}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

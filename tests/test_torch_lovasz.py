@@ -1,7 +1,8 @@
-"""The port's B1 (plain version, the CPU path of the kernel wrapper) and its
-two-scale bucket-Lovász loss against the JAX package's `_fu_core_fwd` and
-`fused_two_scale_bucket_lovasz_s8`, whose Pallas kernel runs here in
-interpret mode, as the JAX package's own tests run it.
+"""The port's B1 and B2 (plain versions, the CPU paths of the kernel
+wrappers) and its two-scale bucket-Lovász loss against the JAX package's
+`_fu_core_fwd`, `_fu_grad` and `fused_two_scale_bucket_lovasz_s8` with its
+gradient, whose Pallas kernels run here in interpret mode, as the JAX
+package's own tests run them.
 
 Inputs are made with numpy from a seed. Logits enter the JAX side NHWC and
 the port NCHW (a (0, 3, 1, 2) transpose). Tolerances:
@@ -11,10 +12,15 @@ the port NCHW (a (0, 3, 1, 2) transpose). Tolerances:
     (row, pixel) pairs: float32 interpolation and softmax in another order
     can move an error that sits on a bucket edge by one bucket;
   * the loss agrees to 1e-5 absolute;
+  * the loss's gradients with respect to both stride-8 logit tensors, and
+    B2's plain version given the same table, agree to a relative L2 of
+    1e-5 (measured: 7e-8 to 6.2e-7 over the six cases; the guide for the
+    kernel on the card is 1e-4);
   * the bucket-id maps and the fmix32 hash are bit-equal.
 """
 from contextlib import nullcontext
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,14 +28,16 @@ import torch
 
 from miccai2021_cataract_semantic_segmentation_tpu.losses import bucket_edges as jbe
 from miccai2021_cataract_semantic_segmentation_tpu.losses.fused_lovasz import (
-    _FU_FWD_BH_CAP, _fu_core_fwd, _pick_bh,
-    fused_two_scale_bucket_lovasz_s8 as jax_fused_loss)
+    _FU_BWD_BH_CAP, _FU_FWD_BH_CAP, _fu_core_fwd, _fu_grad, _fu_mats, _fu_prep,
+    _pick_bh, fused_two_scale_bucket_lovasz_s8 as jax_fused_loss)
 
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_grad import (
+    fu_grad, fu_grad_plain)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (
     fu_histogram, fu_histogram_plain, fu_mats)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import bucket_edges as be
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
-    fu_core_fwd, fused_two_scale_bucket_lovasz_s8, pad_labels)
+    fu_core_fwd, fused_two_scale_bucket_lovasz_s8, grad_table, pad_labels)
 
 A = (2, 17, 30, 5, 136, 240)        # N, hs, ws, C, H, W
 B17 = (2, 9, 16, 17, 68, 120)
@@ -108,6 +116,69 @@ def test_b1_and_loss_match_jax(name):
     assert abs(float(loss) - want_loss) <= 1e-5
 
 
+def rel_l2(got, want):
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want)
+                 / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_loss_gradient_matches_jax(name):
+    """d loss / d (interm, final) stride-8 logits: the port's autograd
+    Function (B1 forward, B2's plain version backward) against jax.grad
+    of the JAX loss (its custom VJP, `_fu_bwd_kernel` in interpret mode)."""
+    (n, hs, ws, c, h, w), nb, edges, dseed, ignore = CASES[name]
+    li, lf, labels = make_inputs(name)
+    kw = dict(classes_to_ignore=ignore, n_buckets=nb, edges=edges,
+              dither_seed=dseed)
+    warns = dseed is not None and edges != "uniform"
+    with pytest.warns(UserWarning, match="adaptive") if warns else nullcontext():
+        want = jax.jit(jax.grad(lambda a, b: jax_fused_loss(
+            a, b, jnp.asarray(labels), 0.4, 1.0, **kw), argnums=(0, 1)))(
+                jnp.asarray(li), jnp.asarray(lf))
+        a, b = nchw(li).requires_grad_(True), nchw(lf).requires_grad_(True)
+        fused_two_scale_bucket_lovasz_s8(a, b, torch.from_numpy(labels),
+                                         0.4, 1.0, **kw).backward()
+    for got, w in ((a.grad, want[0]), (b.grad, want[1])):
+        assert got.dtype == torch.float32
+        assert rel_l2(got.numpy(), np.asarray(w).transpose(0, 3, 1, 2)) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["A-uniform-1024",
+                                  "odd-uniform-1024-dither123-ignore17"])
+def test_fu_grad_plain_matches_jax_fu_grad(name):
+    """B2's plain version against `_fu_grad` given the same table: a random
+    (R, 2, B) table, rounded to bf16, handed to the JAX kernel in its
+    (R, [bg lo | fg lo], hi) layout."""
+    (n, hs, ws, c, h, w), nb, edges, dseed, ignore = CASES[name]
+    li, lf, labels = make_inputs(name)
+    lbl_np = jax_padded_labels(labels, ignore)
+    r_rows = 2 * c
+    hi_n = 32 if nb <= 512 else (64 if nb <= 2048 else 128)
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(1e-3 * rng.standard_normal((r_rows, 2, nb)).astype(
+        np.float32)).to(torch.bfloat16).to(torch.float32)
+    jtbl = table.numpy().reshape(r_rows, 2, hi_n, nb // hi_n)
+    jtbl = jtbl.transpose(0, 1, 3, 2).reshape(r_rows, 2 * (nb // hi_n), hi_n)
+    h_pad, w_pad = lbl_np.shape[1:]
+    hs_pad, ws_pad = -(-hs // 8) * 8, -(-ws // 128) * 128
+    mh_t, mw, mw_t = _fu_mats(hs, ws, hs_pad, ws_pad, (h, w), h_pad, w_pad, True)
+    ls2d = _fu_prep([jnp.asarray(li), jnp.asarray(lf)], hs_pad, ws_pad)
+    dither = dseed is not None
+    bh = _pick_bh(h_pad, _FU_BWD_BH_CAP)
+    dls = np.asarray(jax.jit(lambda *a: _fu_grad(*a[:6], 2, c, bh, w, nb, edges,
+                                                 a[6], dither))(
+        ls2d, jnp.asarray(lbl_np), mh_t, mw, mw_t, jnp.asarray(jtbl),
+        jnp.asarray([dseed or 0], jnp.int32)))
+    want = dls.reshape(n, hs_pad, r_rows, ws_pad)[:, :hs, :, :ws].transpose(0, 2, 1, 3)
+    lbl = pad_labels(torch.from_numpy(labels), ignore)
+    mats = fu_mats(hs, ws, (h, w), h_pad, w_pad, True, torch.device("cpu"))
+    ls = torch.cat([nchw(li), nchw(lf)], 1)
+    got = fu_grad_plain(ls, lbl, mats, table, n_cls=c, n_buckets=nb,
+                        edges=edges, seed=dseed or 0, dither=dither)
+    assert got.shape == want.shape == (n, r_rows, hs, ws)
+    assert rel_l2(got.numpy(), want) <= 1e-5
+
+
 def test_cpu_wrapper_is_the_plain_version():
     li, lf, labels = make_inputs("B17-adaptive-1024-dither3")
     lbl = pad_labels(torch.from_numpy(labels))
@@ -115,10 +186,28 @@ def test_cpu_wrapper_is_the_plain_version():
                    torch.device("cpu"))
     ls = torch.cat([nchw(li), nchw(lf)], 1)
     kw = dict(n_cls=17, n_buckets=1024, seed=5, dither=True)
-    before = fu_histogram.launches
+    before = fu_histogram.launches, fu_grad.launches
     np.testing.assert_array_equal(fu_histogram(ls, lbl, mats, **kw).numpy(),
                                   fu_histogram_plain(ls, lbl, mats, **kw).numpy())
-    assert fu_histogram.launches == before
+    table = torch.rand(34, 2, 1024)
+    assert torch.equal(fu_grad(ls, lbl, mats, table, **kw),
+                       fu_grad_plain(ls, lbl, mats, table, **kw))
+    assert (fu_histogram.launches, fu_grad.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        fu_grad._launch(ls, lbl, mats, table, None, edges="uniform", **kw)
+
+
+def test_grad_table_rounds_to_bf16_in_bg_fg_order():
+    rng = np.random.default_rng(2)
+    g_fg = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    g_bg = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    ct = torch.tensor([0.4, 0.0, 1.0, 0.25], dtype=torch.float64)
+    t = grad_table(g_fg, g_bg, ct)
+    assert t.shape == (4, 2, 8) and t.dtype == torch.float32
+    want_fg = (g_fg * ct.float()[:, None]).to(torch.bfloat16).float()
+    assert torch.equal(t[:, 1], want_fg)
+    assert torch.equal(t[:, 0], (g_bg * ct.float()[:, None]).to(torch.bfloat16).float())
+    assert torch.equal(t[1], torch.zeros(2, 8))
 
 
 def test_fu_mats_taps_are_the_matrix_entries():
@@ -135,6 +224,12 @@ def test_fu_mats_taps_are_the_matrix_entries():
             rebuilt[rows, nxt] += w1
             rebuilt[rows, lo.long()] += w0
             assert torch.equal(rebuilt, mat)
+        # B2's ranges: the output rows/columns that read each source index
+        for mat, beg, end in ((m.mh, m.h_beg, m.h_end),
+                              (m.mw.t(), m.w_beg, m.w_end)):
+            for j in range(mat.shape[1]):
+                nz = torch.nonzero(mat[:, j]).flatten()
+                assert (int(beg[j]), int(end[j])) == (int(nz.min()), int(nz.max()) + 1)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
@@ -156,11 +251,23 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_loss_is_forward_only_and_checks_buckets():
+    """The loss back-propagates into both logit tensors (the name is kept
+    from the slice in which it was forward-only), runs under inference
+    mode without a graph, and rejects bucket counts the kernels do not
+    take."""
     li, lf, labels = make_inputs("A-uniform-1024")
-    a = nchw(li).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B2"):
-        fused_two_scale_bucket_lovasz_s8(a, nchw(lf), torch.from_numpy(labels),
-                                         0.4, 1.0)
+    a, b = nchw(li).requires_grad_(True), nchw(lf).requires_grad_(True)
+    loss = fused_two_scale_bucket_lovasz_s8(a, b, torch.from_numpy(labels),
+                                            0.4, 1.0)
+    assert loss.requires_grad
+    loss.backward()
+    for t in (a, b):
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().sum()) > 0
+    with torch.inference_mode():
+        frozen = fused_two_scale_bucket_lovasz_s8(a, b, torch.from_numpy(labels),
+                                                  0.4, 1.0)
+    assert not frozen.requires_grad and float(frozen) == float(loss)
     with pytest.raises(ValueError, match="bucket count"):
         fused_two_scale_bucket_lovasz_s8(nchw(li), nchw(lf),
                                          torch.from_numpy(labels), 0.4, 1.0,

@@ -103,9 +103,13 @@ def test_full_res_interm_is_left_out_on_request(ocr_pair):
     port.load_state_dict(sd, strict=True)
     x = torch.zeros(1, 3, 32, 48)
     with torch.no_grad():
-        out = port(x, full_res_interm=False)
+        out = port(x, full_res=("logits",))
+        s8_only = port(x, full_res=())
     assert "interm_logits" not in out
     assert {"logits", "logits_s8", "interm_logits_s8", "deep_features"} <= set(out)
+    assert set(s8_only) == {"logits_s8", "interm_logits_s8", "deep_features"}
+    for key in s8_only:
+        assert torch.equal(s8_only[key], out[key])
 
 
 def test_bridge_round_trips_through_port_state_dict(ocr_pair):
