@@ -33,7 +33,34 @@ Phases (any failure raises and the run exits non-zero):
      small input (TF32 off, pad only), for two batches: in float64 loss,
      gradients, grad_norm, new parameters, BatchNorm statistics and the s8
      confusion matrix to tight tolerances; in float32 the same, with the
-     gradients held by their distance from the float64 ones.
+     gradients held by their distance from the float64 ones;
+  9. kernel B3 (the generic bucket-Lovász histogram) against its plain
+     version at the HRNetv2 cell's shape (17 rows of 8 x 544 x 960 pixels)
+     and at edge shapes (one row, an odd row length, 136 per-image rows,
+     all errors 0, all exactly 1, errors piled in buckets 0 and 2047, every
+     bucket edge and its float32 neighbours, `classes_to_ignore` pixels):
+     counts and fixed-point sums equal, the error sums within one float32
+     rounding of a float64 sum (plus 2^-48 per pixel in bucket 0), the
+     per-class losses equal and within 1e-5 of a float64 evaluation, two
+     runs bit-equal; with its time, the plain version's, its bound and the
+     pairs in the two hot buckets;
+ 10. kernel B4 (the generic backward gather) against its plain version at
+     the same shapes, from the bf16-rounded table of a forward on the same
+     inputs: bit-equal, two runs bit-equal; with its time and bound;
+ 11. the HRNetv2-W32 cell at full width: configs/DeepLabv3_rf_lvsz.json with
+     the graph {"model": "HRNetv2", "width": 32} and the loss
+     {"name": "LovaszSoftmax", "lovasz_impl": "bucket"} (task 2, 540x960
+     frames padded to 544x960, batch 8, bf16, pad/flip/blur/colorjitter,
+     Adam at 1e-4) on the same synthetic set: `validate` and `train_steps`
+     with the launch counts read around each (one B3 per eval-loss batch
+     and per train step, one B4 per train step, none of B1/B2), one
+     batch's loss recomputed with B3's plain version, a 10-step overfit of
+     one batch (pad only) whose loss falls at every step, the train step's
+     time, frames/s, peak memory and device time by kernel group;
+ 12. the HRNetv2 train step on the card against the CPU as phase 8 does it
+     for OCRNet, at width 8 (a reduction of width for the CPU's sake), with
+     the pairs whose bucket differs between the two sides counted (see
+     MOVED_TOL).
 The line before the last line of stdout is the card's name and power limit
 as nvidia-smi reports them; the line before it is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.
@@ -52,6 +79,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "OCRNet_rf_lvsz.json")
+# the HRNetv2 cell: this recipe with its graph and loss replaced
+HR_CONFIG = os.path.join(ROOT, "configs", "DeepLabv3_rf_lvsz.json")
+HR_LOSS = {"name": "LovaszSoftmax", "lovasz_impl": "bucket"}
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
 # float32 operations B1 does per counted (pixel, class row) pair: 9 for the
@@ -66,6 +96,11 @@ B1_OPS_PER_PAIR = 16
 # 4 * ws / W_pad per pair (`b2_ops`)
 B2_OPS_PER_PAIR = 16 + 1 + 4 + 4
 B2_OPS_PER_HEIGHT_TAP_PAIR = 4
+# B3 per (row, pixel) pair: the bucket id's multiply, the bf16 rounding,
+# the fixed-point scale and the sum; B4: the bucket id's multiply (the
+# gather is a load)
+B3_OPS_PER_PAIR = 4
+B4_OPS_PER_PAIR = 1
 
 
 def b2_ops(pairs: int, ws: int, w_pad: int) -> float:
@@ -306,7 +341,7 @@ def synthetic_set(n=29, h=540, w=960, seed=0):
 
 def run_slice(dev, cfg) -> None:
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
-        KERNELS, fu_histogram, fu_histogram_plain, reset_launches)
+        KERNELS, fu_histogram, fu_histogram_plain, launch_counts, reset_launches)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
         fused_two_scale_bucket_lovasz_s8)
@@ -332,7 +367,7 @@ def run_slice(dev, cfg) -> None:
     res = validate(model, cfg, images, labels, device=dev, batch_size=bs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_full = len(images) // bs
 
@@ -351,7 +386,7 @@ def run_slice(dev, cfg) -> None:
           f"{bs / step_ms * 1e3!r} frames/s; peak memory {peak} bytes; "
           f"kernel launches {launches}; cm total {int(cm.sum())} of {expected} "
           f"counted pixels", flush=True)
-    if launches != {fu_histogram.name: n_full, "fu_grad": 0}:
+    if launches != dict(dict.fromkeys(KERNELS, 0), fu_hist=n_full):
         raise AssertionError(f"kernel launches in validate {launches}, "
                              f"expected {n_full} of B1 and none of B2")
     for key in ("valid_loss", "miou", "pa", "pac"):
@@ -384,6 +419,8 @@ def run_slice(dev, cfg) -> None:
 # were read)
 _GROUPS = (("B1 fu_hist", ("fu_hist",)),
            ("B2 fu_grad", ("fu_grad",)),
+           ("B3 bucket_hist", ("bucket_hist",)),
+           ("B4 bucket_grad", ("bucket_grad",)),
            ("copies", ("memcpy", "memset")),
            ("layout NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
            ("optimizer (Adam)", ("adam", "multi_tensor", "foreach")),
@@ -427,7 +464,10 @@ def profile_step(run_step, what: str, steps: int = 3) -> dict:
     span_ms = start.elapsed_time(end)
     groups, top = {}, []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a record_function range such as `Optimizer.step#Adam.step` shows
+        # as a device span too; it is not kernel time
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False) or "#" in ev.key):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -497,7 +537,7 @@ def run_train_slice(dev, cfg) -> dict:
 
     from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
-        KERNELS, reset_launches)
+        KERNELS, launch_counts, reset_launches)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
@@ -517,14 +557,14 @@ def run_train_slice(dev, cfg) -> dict:
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     res = train_steps(model, cfg, images, labels, batches, device=dev)
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print("train_steps: " + json.dumps({k: res[k] for k in (
         "loss", "miou", "pa", "step_losses", "seconds", "frames_per_s")})
           + f"; {n_full} steps of {bs} frames; peak memory {peak} bytes; "
           f"kernel launches {launches}; cm total "
           f"{int(res['confusion_matrix'].sum())}", flush=True)
-    if launches != {"fu_hist": n_full, "fu_grad": n_full}:
+    if launches != dict(dict.fromkeys(KERNELS, 0), fu_hist=n_full, fu_grad=n_full):
         raise AssertionError(f"kernel launches in train_steps {launches}, "
                              f"expected one B1 and one B2 per step ({n_full})")
     if not np.isfinite(res["step_losses"]).all():
@@ -533,11 +573,11 @@ def run_train_slice(dev, cfg) -> dict:
     reset_launches()
     fit = train_steps(model, cfg, images, labels, [batches[0]] * 10,
                       device=dev, seed=1)
-    fit_launches = {name: k.launches for name, k in KERNELS.items()}
+    fit_launches = launch_counts()
     losses = fit["step_losses"]
     print(f"overfit, 10 steps on one batch: losses {losses}; kernel "
           f"launches {fit_launches}", flush=True)
-    if fit_launches != {"fu_hist": 10, "fu_grad": 10}:
+    if fit_launches != dict(dict.fromkeys(KERNELS, 0), fu_hist=10, fu_grad=10):
         raise AssertionError(f"kernel launches in the overfit {fit_launches}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"the overfit loss does not fall: {losses}")
@@ -577,6 +617,19 @@ F64_TOL = {"loss": 2.5e-7, "grads": 1e-7, "grad_norm": 5e-8, "stats": 1e-12,
 # the CPU's float64 ones as the CPU's float32 gradients are (read: 0.78
 # and 0.98)
 F32_GRAD_RATIO = 1.25
+# The generic bucket route reads full-resolution logits through torch's
+# float32 softmax, which the card and the CPU may round differently in the
+# last bit: an error on a bucket edge then lands in the neighbouring bucket
+# on one side and takes that bucket's gradient, a step of its own (one such
+# pair moved the float32 gradients by about 7e-4 in an H100 run, PERF.md,
+# PR 3). Phase 12 counts the (row, pixel) pairs whose bucket differs
+# between the card's and the CPU's loss inputs. Where none moved, the
+# float64 step is held to F64_TOL; where some moved, its gradients and
+# their norm are held to MOVED_TOL instead, and so are the float32
+# gradients when they miss the F32_GRAD_RATIO gate, while the new
+# parameters are not held (a gradient element near zero may then change
+# sign, and Adam's first step moves it by about lr either way)
+MOVED_TOL = 1e-2
 
 
 def flat_grads(model) -> torch.Tensor:
@@ -593,9 +646,12 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def one_train_step(dev, cfg, images, labels, dtype) -> dict:
     """One Lovász train step (pad only, Adam) of the seed-0 model in
     `dtype` on `dev`: its loss, grad_norm, s8 confusion matrix, gradients
-    and new state dict, on the CPU."""
+    and new state dict, on the CPU; with a loss that reads the
+    full-resolution logits, also the bucket ids (R, P) of its rows."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import bucket_ids
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import lovasz_rows
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
@@ -604,19 +660,29 @@ def one_train_step(dev, cfg, images, labels, dtype) -> dict:
     task = int(cfg["data"]["experiment"])
     model = build_model(cfg["graph"], task, device=dev, seed=0).to(dtype)
     state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 1))
-    step = make_train_step(build_loss(cfg["loss"], task, dev), device_spec(["pad"]),
+    loss_fn, seen = build_loss(cfg["loss"], task, dev), {}
+
+    def recording_loss(outputs, lbl, **kwargs):
+        if "logits" in outputs:
+            seen["rows"] = lovasz_rows(outputs["logits"].detach(), lbl)[0]
+        return loss_fn(outputs, lbl, **kwargs)
+
+    recording_loss.full_res = loss_fn.full_res
+    step = make_train_step(recording_loss, device_spec(["pad"]),
                            task, device=dev,
                            precision="fp64" if dtype == torch.float64 else "fp32",
                            train_metrics="s8")
     m = step(state, images, labels, 0)
+    bids = bucket_ids(seen["rows"]).cpu() if seen else None
     return dict(loss=float(m["loss"]), norm=float(m["grad_norm"]),
                 cm=m["confusion_matrix"].cpu(), grads=flat_grads(model),
-                sd={k: v.cpu() for k, v in model.state_dict().items()})
+                sd={k: v.cpu() for k, v in model.state_dict().items()},
+                bids=bids)
 
 
-def train_card_vs_cpu(dev, cfg) -> None:
-    """The train step on the card against the same step on the CPU at a
-    small input (TF32 off, pad only), for two seeded batches.
+def train_card_vs_cpu(dev, cfg, what: str = "OCRNet") -> None:
+    """The train step of `what` on the card against the same step on the
+    CPU at a small input (TF32 off, pad only), for two seeded batches.
 
     In float64 every output must agree to F64_TOL: the card's path (its
     convolutions and BatchNorm forward and backward, B1 and B2, Adam) is
@@ -625,7 +691,9 @@ def train_card_vs_cpu(dev, cfg) -> None:
     and batch 2, moves each side's gradients that far from float64. There
     the card's float32 gradients must be no more than F32_GRAD_RATIO times
     as far from the CPU's float64 gradients as the CPU's float32 ones are;
-    loss, BatchNorm statistics and the confusion matrix are held as before."""
+    loss, BatchNorm statistics and the confusion matrix are held as before.
+    A loss on full-resolution logits (the generic bucket route) is held as
+    MOVED_TOL says where pairs moved buckets between the two sides."""
     lr = float(cfg["train"]["learning_rate"])
     cpu = torch.device("cpu")
     failed = []
@@ -650,32 +718,343 @@ def train_card_vs_cpu(dev, cfg) -> None:
                     params=max(float((sd_g[k] - sd_c[k]).abs().max())
                                for k in params) / lr,
                     cm_l1=int((card["cm"] - host["cm"]).abs().sum()))
-                print(f"train step card vs CPU ({dt}, batch seed {seed}, "
+                moved = (0 if card["bids"] is None
+                         else int((card["bids"] != host["bids"]).sum()))
+                tol = dict(F64_TOL, **(dict(grads=MOVED_TOL, grad_norm=MOVED_TOL,
+                                            params=float("inf")) if moved else {}))
+                print(f"{what} train step card vs CPU ({dt}, batch seed {seed}, "
                       f"2x64x96, TF32 off, pad only): loss {card['loss']!r} vs "
                       f"{host['loss']!r}; grad_norm {card['norm']!r} vs "
-                      f"{host['norm']!r}; " + json.dumps(got), flush=True)
+                      f"{host['norm']!r}; pairs in another bucket {moved}; "
+                      + json.dumps(got), flush=True)
                 if dt == torch.float64:
                     bad = {k: v for k, v in got.items()
-                           if k != "cm_l1" and v > F64_TOL[k]}
+                           if k != "cm_l1" and v > tol[k]}
                     if bad or got["cm_l1"]:
                         failed.append(f"float64, batch seed {seed}: {got}")
                     continue
                 ref = runs["cpu", torch.float64]["grads"]
                 err_card = rel_l2(card["grads"], ref)
                 err_cpu = rel_l2(host["grads"], ref)
-                print(f"train step, float32 gradients against the CPU's float64 "
+                print(f"{what} train step, float32 gradients against the CPU's float64 "
                       f"(batch seed {seed}): the card's {err_card!r}, the CPU's "
                       f"{err_cpu!r}", flush=True)
                 if (got["loss"] > 1e-5 or got["stats"] > 1e-4
                         or got["cm_l1"] > 2e-3 * int(host["cm"].sum())
-                        or err_card > F32_GRAD_RATIO * err_cpu):
+                        or err_card > max(F32_GRAD_RATIO * err_cpu,
+                                          MOVED_TOL if moved else 0.0)):
                     failed.append(f"float32, batch seed {seed}: {got}, "
                                   f"{err_card} vs {err_cpu} from float64")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     if failed:
-        raise AssertionError("the card's train step disagrees with the "
-                             "CPU's: " + "; ".join(failed))
+        raise AssertionError(f"the card's {what} train step disagrees with "
+                             "the CPU's: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: B3 and B4 against their plain versions
+# ---------------------------------------------------------------------------
+
+B3_CASES = ("cell", "per_image_136", "r1", "p_odd", "zeros", "ones", "piled",
+            "edges", "classes_to_ignore")
+# (N, H, W) of the cell's logits, and (R, P) of the synthetic cases
+B3_CELL = (8, 544, 960)
+B3_ROWS = {"r1": (1, 100_003), "p_odd": (17, 123_457), "other": (17, 500_000)}
+
+
+def b3_inputs(name, dev):
+    """(errors (R, P) float32, fg (R, P) bool) of one phase-9 case: the
+    rows of `lovasz_rows` from seeded logits and blocky labels for the
+    cell (17 x 8·544·960), its per-image form (136 x 544·960) and a
+    `classes_to_ignore` case; synthetic rows for the others."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_rows)
+
+    seed = sum(map(ord, name))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    if name in ("cell", "per_image_136", "classes_to_ignore"):
+        n, h, w = B3_CELL
+        if name == "classes_to_ignore":
+            n, h, w = 2, h // 2, w // 2
+        logits = 3.0 * torch.randn((n, 17, h, w), generator=gen, device=dev)
+        labels = torch.as_tensor(blocky_labels(rng, n, h, w, 18, 8), device=dev)
+        e, fg, _ = lovasz_rows(logits, labels, 17 if name == "classes_to_ignore"
+                               else None, per_image=name == "per_image_136")
+        return e.contiguous(), fg.contiguous()
+    r_rows, p = B3_ROWS.get(name, B3_ROWS["other"])
+    u = torch.rand((r_rows, p), generator=gen, device=dev)
+    if name == "zeros":
+        e = torch.zeros_like(u)
+    elif name == "ones":
+        e = torch.ones_like(u)
+    elif name == "piled":       # 45 % in bucket 0, 45 % in bucket 2047
+        which = torch.rand((r_rows, p), generator=gen, device=dev)
+        e = torch.where(which < 0.45, u * (2.0 ** -11) * 0.999,
+                        torch.where(which < 0.9, 1.0 - u * 2.0 ** -12, u))
+    elif name == "edges":       # k/2048 and its float32 neighbours
+        k = torch.arange(2049, dtype=torch.float32, device=dev) / 2048
+        row = torch.cat([k, torch.nextafter(k, torch.tensor(2.0, device=dev)),
+                         torch.nextafter(k, torch.tensor(-1.0, device=dev)).clamp_min(0)])
+        e = row.repeat(r_rows, 1)
+    else:
+        e = u ** 3
+    fg = torch.rand(e.shape, generator=gen, device=dev) < 0.3
+    return e.contiguous(), fg
+
+
+def se_float64(e, fg):
+    """(R, 2, 2048) float64 sums of bf16(e) per [bg, fg] bucket."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import (
+        N_BUCKETS, bucket_ids)
+    bid = bucket_ids(e)
+    row = torch.arange(e.shape[0], device=e.device)[:, None]
+    key = ((row * 2 + fg.long()) * N_BUCKETS + bid)[bid >= 0]
+    se = torch.zeros(e.shape[0] * 2 * N_BUCKETS, dtype=torch.float64, device=e.device)
+    se.index_add_(0, key, e.to(torch.bfloat16).double()[bid >= 0])
+    return se.reshape(e.shape[0], 2, N_BUCKETS)
+
+
+def check_b3(dev) -> dict:
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        bucket_histogram, bucket_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        losses_and_tables)
+
+    record = None
+    for name in B3_CASES:
+        e, fg = b3_inputs(name, dev)
+        got = bucket_histogram(e, fg)
+        again = bucket_histogram(e, fg)
+        ref = bucket_histogram_plain(e, fg)
+        se64 = se_float64(e, fg)
+        torch.cuda.synchronize()
+        r_rows, p = e.shape
+        counts_equal = torch.equal(got[..., :2], ref[..., :2])
+        equal = torch.equal(got, ref)
+        repeat = torch.equal(got, again)
+        se_k = got[..., [3, 2]].transpose(1, 2).double()     # (R, [bg, fg], B)
+        n_b0 = got[:, 0, [1, 0]].double()
+        allowed = (2.0 ** -24 + 1e-9) * se64
+        allowed[..., 0] += n_b0 * 2.0 ** -48
+        se_err = (se_k - se64).abs()
+        se_ok = bool((se_err <= allowed).all())
+        se_rel = float((se_err / se64.clamp_min(1e-30)).max())
+        per_k = losses_and_tables(got)[0]
+        per_p = losses_and_tables(ref)[0]
+        hist64 = torch.stack([got[..., 0].double(), got[..., 1].double(),
+                              se64[:, 1], se64[:, 0]], dim=-1)
+        per64 = losses_and_tables(hist64)[0]
+        loss_err = float((per_k.double() - per64).abs().max())
+        hot = float((got[:, 0, :2].sum() + got[:, -1, :2].sum()) / (r_rows * p))
+        print(f"B3 {name}: R={r_rows} P={p} counts_equal={counts_equal} "
+              f"bit_equal_to_plain={equal} two_runs_bit_equal={repeat} "
+              f"se_within_f32_rounding_of_f64={se_ok} se_max_rel_vs_f64={se_rel!r} "
+              f"per_class_loss_max_abs_vs_f64={loss_err!r} "
+              f"pairs_in_buckets_0_and_2047={hot!r}", flush=True)
+        if not (counts_equal and equal and repeat and se_ok
+                and torch.equal(per_k, per_p) and loss_err <= 1e-5):
+            raise AssertionError(f"B3 {name} disagrees with its plain version "
+                                 "or the float64 sums")
+        if name == "cell":
+            kernel_ms = cuda_ms(lambda: bucket_histogram(e, fg))
+            plain_ms = cuda_ms(lambda: bucket_histogram_plain(e, fg), reps=5)
+            n_bytes = 4 * e.numel() + fg.numel() + 4 * got.numel()
+            t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+            t_ops = B3_OPS_PER_PAIR * e.numel() / PEAK_F32_OPS_S * 1e3
+            print(f"B3 cell timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
+                  f"ms (CUDA events, median of 20 and of 5); bound: {n_bytes} "
+                  f"bytes -> {t_bytes!r} ms, {B3_OPS_PER_PAIR * e.numel()} "
+                  f"ops -> {t_ops!r} ms; {e.numel()} pairs, {hot!r} of them "
+                  "in buckets 0 and 2047", flush=True)
+            record = {"name": bucket_histogram.name, "route": "cuda",
+                      "source": bucket_histogram.source,
+                      "replaces": bucket_histogram.replaces, "launches": None,
+                      "max_abs_err": float((got - ref).abs().max()),
+                      "ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": None}
+        del e, fg, got, again, ref, se64
+    return record
+
+
+def check_b4(dev) -> dict:
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        bucket_gather, bucket_gather_plain, bucket_histogram)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        grad_table, losses_and_tables)
+
+    record = None
+    for name in B3_CASES:
+        e, fg = b3_inputs(name, dev)
+        _, gts, g_fg, g_bg = losses_and_tables(bucket_histogram(e, fg))
+        present = (gts > 0).float()
+        table = grad_table(g_fg, g_bg, present / present.sum().clamp_min(1.0))
+        got = bucket_gather(e, fg, table)
+        again = bucket_gather(e, fg, table)
+        ref = bucket_gather_plain(e, fg, table)
+        torch.cuda.synchronize()
+        equal, repeat = torch.equal(got, ref), torch.equal(got, again)
+        print(f"B4 {name}: R={e.shape[0]} P={e.shape[1]} bit_equal_to_plain="
+              f"{equal} two_runs_bit_equal={repeat} nonzero="
+              f"{int((got != 0).sum())}", flush=True)
+        if not (equal and repeat):
+            raise AssertionError(f"B4 {name} disagrees with its plain version")
+        if name == "cell":
+            kernel_ms = cuda_ms(lambda: bucket_gather(e, fg, table))
+            plain_ms = cuda_ms(lambda: bucket_gather_plain(e, fg, table), reps=5)
+            n_bytes = 4 * e.numel() + fg.numel() + 4 * table.numel() + 4 * got.numel()
+            t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+            t_ops = B4_OPS_PER_PAIR * e.numel() / PEAK_F32_OPS_S * 1e3
+            print(f"B4 cell timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
+                  f"ms (CUDA events, median of 20 and of 5); bound: {n_bytes} "
+                  f"bytes -> {t_bytes!r} ms, {B4_OPS_PER_PAIR * e.numel()} ops "
+                  f"-> {t_ops!r} ms", flush=True)
+            record = {"name": bucket_gather.name, "route": "cuda",
+                      "source": bucket_gather.source,
+                      "replaces": bucket_gather.replaces, "launches": None,
+                      "max_abs_err": float((got - ref).abs().max()),
+                      "ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": None}
+        del e, fg, got, again, ref
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the HRNetv2-W32 cell at full width
+# ---------------------------------------------------------------------------
+
+def hrnet_config(width: int = 32) -> dict:
+    with open(HR_CONFIG) as f:
+        cfg = json.load(f)
+    return dict(cfg, graph={"model": "HRNetv2", "width": width},
+                loss=dict(HR_LOSS))
+
+
+def run_hrnet_cell(dev, cfg, n_frames: int = 29, hw=(540, 960),
+                   profile: bool = True) -> dict:
+    """`validate` and `train_steps` of the HRNetv2 cell with the kernels'
+    counts read around each, one batch's loss against B3's plain version,
+    a 10-step overfit, the train step's time and profile; returns the
+    launch counts of `train_steps`."""
+    import copy
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, bucket_histogram_plain, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        bucket_lovasz_per_class)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_rows, lovasz_softmax)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_preprocess, eval_spec, make_eval_loss_step, make_train_step)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+        train_metrics_source, train_steps)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
+
+    task, bs = int(cfg["data"]["experiment"]), 8
+    n_cls = 17
+    images, labels = synthetic_set(n_frames, *hw)
+    model = build_model(cfg["graph"], task, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_full = len(images) // bs
+    spec = eval_spec(cfg["data"]["transforms"])
+    loss_fn = build_loss(cfg["loss"], task, dev)
+    eval_step = make_eval_loss_step(loss_fn, spec, dev, cfg.get("precision", "bf16"))
+    eval_step(model, images[:bs], labels[:bs], 0)        # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    res = validate(model, cfg, images, labels, device=dev, batch_size=bs)
+    torch.cuda.synchronize()
+    val_launches = launch_counts()
+    cm = res["confusion_matrix"]
+    expected = int((pad_reflect_hw(torch.as_tensor(labels)) < n_cls).sum())
+    print("HRNetv2 validate: " + json.dumps({k: res[k] for k in (
+        "valid_loss", "miou", "pa", "pac")}) + f"; {n_params} parameters; "
+          f"kernel launches {val_launches}; cm total {int(cm.sum())} of "
+          f"{expected}", flush=True)
+    if val_launches != dict(dict.fromkeys(KERNELS, 0), bucket_hist=n_full):
+        raise AssertionError(f"kernel launches in validate {val_launches}, "
+                             f"expected {n_full} of B3 and no other")
+    if not (np.isfinite(res["valid_loss"]) and int(cm.sum()) == expected):
+        raise AssertionError(f"HRNetv2 validate: loss {res['valid_loss']}, "
+                             f"cm {int(cm.sum())} of {expected}")
+
+    # one full batch's loss: the step's, B3's plain version's, the sort's
+    with torch.inference_mode():
+        _, _, _, step_loss = eval_step(model, images[:bs], labels[:bs], 0)
+        x, lbl = eval_preprocess(torch.as_tensor(images[:bs]).to(dev), spec,
+                                 torch.as_tensor(labels[:bs]).to(dev))
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            logits = model(x)["logits"]
+        e, fg, present = lovasz_rows(logits, lbl)
+        per_k = bucket_lovasz_per_class(e, fg)
+        per_p = bucket_lovasz_per_class(e, fg, histogram=bucket_histogram_plain)
+        loss_k = float((per_k * present).sum() / present.sum())
+        loss_p = float((per_p * present).sum() / present.sum())
+        loss_sort = float(lovasz_softmax(logits, lbl, impl="sort"))
+        del x, lbl, logits, e, fg, present, per_k, per_p
+    print(f"HRNetv2 batch 0 loss: step {float(step_loss)!r}, kernel {loss_k!r}, "
+          f"plain B3 {loss_p!r}, exact sort {loss_sort!r}", flush=True)
+    if loss_k != loss_p or abs(loss_k - float(step_loss)) > 1e-6:
+        raise AssertionError("HRNetv2 batch loss: kernel, plain and step disagree")
+
+    batches = list(np.arange(n_full * bs).reshape(n_full, bs))
+    train_steps(copy.deepcopy(model), cfg, images, labels, batches[:1], device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_steps(model, cfg, images, labels, batches, device=dev)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print("HRNetv2 train_steps: " + json.dumps({k: res[k] for k in (
+        "loss", "miou", "pa", "step_losses", "seconds", "frames_per_s")})
+          + f"; {n_full} steps of {bs} frames; peak memory {peak} bytes; "
+          f"kernel launches {launches}; cm total "
+          f"{int(res['confusion_matrix'].sum())}", flush=True)
+    if launches != dict(dict.fromkeys(KERNELS, 0), bucket_hist=n_full,
+                        bucket_grad=n_full):
+        raise AssertionError(f"kernel launches in train_steps {launches}, "
+                             f"expected one B3 and one B4 per step ({n_full})")
+    if not np.isfinite(res["step_losses"]).all():
+        raise AssertionError(f"HRNetv2 train losses {res['step_losses']}")
+
+    # the overfit sees one batch under the pad alone, so that each step's
+    # loss is the same function of the weights
+    fit_cfg = dict(cfg, data=dict(cfg["data"], transforms=["pad"]))
+    fit = train_steps(copy.deepcopy(model), fit_cfg, images, labels,
+                      [batches[0]] * 10, device=dev, seed=1)
+    losses = fit["step_losses"]
+    print(f"HRNetv2 overfit, 10 steps on one batch (pad only): losses {losses}",
+          flush=True)
+    if not (np.isfinite(losses).all() and all(np.diff(losses) < 0)):
+        raise AssertionError(f"the HRNetv2 overfit loss does not fall at every "
+                             f"step: {losses}")
+
+    state = res["state"]
+    step = make_train_step(loss_fn, device_spec(cfg["data"]["transforms"]), task,
+                           device=dev, precision=cfg.get("precision", "bf16"),
+                           train_metrics=train_metrics_source(cfg))
+    imgs, lbls = images[:bs], labels[:bs]
+    step_ms = cuda_ms(lambda: step(state, imgs, lbls, 0), reps=10, warmup=2)
+    print(f"HRNetv2 train step: {step_ms!r} ms (CUDA events, median of 10) = "
+          f"{bs / step_ms * 1e3!r} frames/s", flush=True)
+    if profile:
+        groups = profile_step(lambda: step(state, imgs, lbls, 0), "HRNetv2 train")
+        total = sum(groups.values())
+        print(f"HRNetv2 train step shares: B3 "
+              f"{groups.get('B3 bucket_hist', 0.0) / total!r}, B4 "
+              f"{groups.get('B4 bucket_grad', 0.0) / total!r} of the device "
+              "kernel time", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -713,10 +1092,17 @@ def main() -> int:
     launches = run_train_slice(dev, cfg)
     train_card_vs_cpu(dev, cfg)
     b1["launches"], b2["launches"] = launches["fu_hist"], launches["fu_grad"]
+    b3 = check_b3(dev)
+    b4 = check_b4(dev)
+    hr_launches = run_hrnet_cell(dev, hrnet_config())
+    train_card_vs_cpu(dev, hrnet_config(width=8), "HRNetv2-W8")
+    b3["launches"] = hr_launches["bucket_hist"]
+    b4["launches"] = hr_launches["bucket_grad"]
 
-    print("kernels B1 fu_hist and B2 fu_grad: ported (CUDA C++, sm_90a); "
-          "launches counted over train_steps")
-    print(json.dumps({"kernels": [b1, b2]}))
+    print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist and B4 bucket_grad: "
+          "ported (CUDA C++, sm_90a); launches counted over train_steps "
+          "(B1/B2: OCRNet, B3/B4: HRNetv2)")
+    print(json.dumps({"kernels": [b1, b2, b3, b4]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

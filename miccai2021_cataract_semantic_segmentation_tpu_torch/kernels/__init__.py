@@ -4,14 +4,23 @@ version (the CPU path and the kernel's oracle on the card).
 `KERNELS` maps each kernel's name to its wrapper; every wrapper has a
 `launches` count, a `name`, and `replaces` (the Pallas kernel it ports).
 """
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_grad import (  # noqa: F401
+    bucket_gather, bucket_gather_plain)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import (  # noqa: F401
+    bucket_histogram, bucket_histogram_plain)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_grad import (  # noqa: F401
     fu_grad, fu_grad_plain)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (  # noqa: F401
     fu_histogram, fu_histogram_plain)
 
-KERNELS = {k.name: k for k in (fu_histogram, fu_grad)}
+KERNELS = {k.name: k for k in (fu_histogram, fu_grad, bucket_histogram,
+                               bucket_gather)}
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}

@@ -13,6 +13,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "error.cuh"
+
 namespace fu {
 
 // The bucket-id map of losses/bucket_edges.py and the dither of its
@@ -121,7 +123,3 @@ __device__ __forceinline__ void softmax_terms(const float* base, long long plane
 }
 
 }  // namespace fu
-
-extern "C" const char* cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

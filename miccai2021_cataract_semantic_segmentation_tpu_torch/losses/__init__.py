@@ -2,13 +2,23 @@
 
 `build_loss(loss_config, task)` returns
     loss_fn(outputs: dict, labels, *, epoch=None, step=None) -> (total, terms)
-as the JAX package's does. The total back-propagates into the stride-8
-logits through kernel B2 when they require a gradient (the train step),
-and runs forward only under `torch.inference_mode()` (the eval steps).
-This slice ports the flagship route only: TwoScaleLoss with Lovász on
-both scales, `lovasz_impl: bucket`, through the
-fused stride-8 kernel (losses/fused_lovasz.py). Every other route raises
-NotImplementedError naming its ROADMAP item.
+as the JAX package's does; `loss_fn.full_res` names the full-resolution
+outputs the loss reads from a model that also gives stride-8 logits, so
+that the steps ask the forward for them and for no others. The total
+back-propagates into the logits it read when they require a gradient (the
+train step) and runs forward only under `torch.inference_mode()` (the eval
+steps). Routes of the port:
+  * TwoScaleLoss with Lovász at default options on both scales and
+    `lovasz_impl: bucket`: the fused stride-8 route (losses/fused_lovasz.py,
+    kernels B1/B2) when the model gives stride-8 logits, else the generic
+    bucket route on the full-resolution logits;
+  * TwoScaleLoss with Lovász otherwise, and LovaszSoftmax: the exact sort
+    route (the default `lovasz_impl`) or the generic bucket route
+    (losses/bucket_lovasz.py, kernels B3/B4) on full-resolution logits. On
+    a model with stride-8 logits the single-scale bucket Lovász is the
+    fused route of ROADMAP item 10, which is not ported: it raises rather
+    than compute the generic route's different function.
+Every other loss raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,6 +27,10 @@ import warnings
 import torch
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+
+# The loss modules import the kernels, which import this package's
+# bucket_edges.py: the builders below import them where they run.
 
 
 def _warn_bucket_dial(cfg: dict) -> None:
@@ -25,7 +39,15 @@ def _warn_bucket_dial(cfg: dict) -> None:
     if cfg.get("lovasz_impl") == "bucket" and b < 1024:
         warnings.warn(
             f"lovasz_buckets={b} < 1024 leaves the twin-verified envelope; "
-            "use >=1024 for the verified recipe", stacklevel=2)
+            "use >=1024 for the verified recipe", stacklevel=3)
+
+
+def _warn_dither_unused(cfg: dict) -> None:
+    """`lovasz_dither` acts on the fused stride-8 route only."""
+    if cfg.get("lovasz_dither", False):
+        warnings.warn(
+            "lovasz_dither does nothing on the sort and generic bucket Lovász "
+            "routes; only the fused stride-8 route dithers", stacklevel=3)
 
 
 def _dither_seed_of(cfg: dict, step):
@@ -41,9 +63,46 @@ def _not_ported(what: str, item: str):
                                f"{item})")
 
 
+def _at_label_size(logits, labels):
+    """Bilinear align_corners=False upsample to the labels' size (torch
+    F.upsample's default in the reference's TwoScaleLoss)."""
+    hw = tuple(labels.shape[-2:])
+    if tuple(logits.shape[2:]) != hw:
+        logits = resize_bilinear(logits, hw, align_corners=False)
+    return logits
+
+
+def _maybe_fused_single_lovasz(cfg: dict, outputs: dict) -> None:
+    """The single-scale bucket Lovász on a model with stride-8 logits is the
+    fused route, which this port does not have yet: raise there. Return
+    where the route does not apply (the caller takes the generic route)."""
+    if cfg.get("lovasz_impl") != "bucket" or cfg.get("per_image", False):
+        return
+    if outputs.get("logits_s8") is None and outputs.get("logits_s8_acf") is None:
+        return
+    raise _not_ported("the single-scale fused bucket Lovász on stride-8 "
+                      "logits", "item 10")
+
+
+def _single_loss(name: str, cfg: dict, task: int):
+    """A (logits, labels) -> scalar closure for one named loss."""
+    if name != "LovaszSoftmax":
+        raise _not_ported(f"loss '{name}'", "item 11 (the remaining losses)")
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_softmax)
+    _warn_bucket_dial(cfg)
+    _warn_dither_unused(cfg)
+    return lambda lg, lb: lovasz_softmax(
+        lg, lb,
+        classes_to_consider=cfg.get("classes_to_consider", "present"),
+        classes_to_ignore=cfg.get("classes_to_ignore"),
+        per_image=cfg.get("per_image", False),
+        impl=cfg.get("lovasz_impl", "sort"))
+
+
 def build_two_scale(cfg: dict, task: int):
-    """TwoScaleLoss: weighted interm + final Lovász pair on the fused
-    stride-8 route (the only TwoScale route of this slice)."""
+    """TwoScaleLoss: weighted interm + final same-loss pair
+    (TwoScaleLoss.py:9-52)."""
     _warn_bucket_dial(cfg)
     interm_cfg = dict(cfg.get("interm", {"name": "CrossEntropyLoss"}))
     final_cfg = dict(cfg.get("final", {"name": "CrossEntropyLoss"}))
@@ -55,50 +114,93 @@ def build_two_scale(cfg: dict, task: int):
                 and c.get("classes_to_consider") in (None, "present")
                 and not c.get("per_image", False))
 
-    impl = cfg.get("lovasz_impl", interm_cfg.get("lovasz_impl", "sort"))
-    if not (_is_default_lovasz(interm_cfg) and _is_default_lovasz(final_cfg)
-            and impl == "bucket"):
-        raise _not_ported("TwoScaleLoss other than the fused bucket Lovász",
-                          "items 3 and 11 (main-path and remaining losses)")
-    ign = interm_cfg.get("classes_to_ignore")
+    if _is_default_lovasz(interm_cfg) and _is_default_lovasz(final_cfg):
+        from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+            fused_two_scale_lovasz)
+        ign = interm_cfg.get("classes_to_ignore")
+        impl = cfg.get("lovasz_impl", interm_cfg.get("lovasz_impl", "sort"))
+        if impl != "bucket":
+            _warn_dither_unused(cfg)
 
-    def fused_fn(interm_logits, final_logits, labels,
-                 interm_s8=None, final_s8=None, step=None):
-        if interm_s8 is None or final_s8 is None:
-            raise _not_ported("TwoScaleLoss without stride-8 logits",
-                              "item 3 (the non-fused Lovász route)")
-        from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
-            fused_two_scale_bucket_lovasz_s8)
-        return fused_two_scale_bucket_lovasz_s8(
-            interm_s8, final_s8, labels, w_interm, w_final,
-            classes_to_ignore=ign,
-            n_buckets=int(cfg.get("lovasz_buckets", 2048)),
-            edges=cfg.get("lovasz_edges", "uniform"),
-            dither_seed=_dither_seed_of(cfg, step))
+        def fused_fn(interm_logits, final_logits, labels,
+                     interm_s8=None, final_s8=None, step=None):
+            if impl == "bucket" and interm_s8 is not None and final_s8 is not None:
+                from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+                    fused_two_scale_bucket_lovasz_s8)
+                return fused_two_scale_bucket_lovasz_s8(
+                    interm_s8, final_s8, labels, w_interm, w_final,
+                    classes_to_ignore=ign,
+                    n_buckets=int(cfg.get("lovasz_buckets", 2048)),
+                    edges=cfg.get("lovasz_edges", "uniform"),
+                    dither_seed=_dither_seed_of(cfg, step))
+            if impl == "bucket":
+                _warn_dither_unused(cfg)
+            return fused_two_scale_lovasz(
+                _at_label_size(_interm(interm_logits), labels), final_logits,
+                labels, w_interm, w_final, classes_to_ignore=ign, impl=impl)
 
-    return fused_fn
+        fused_fn.full_res = () if impl == "bucket" else ("interm_logits", "logits")
+        return fused_fn
+
+    interm_fn = _single_loss(interm_cfg["name"], interm_cfg, task)
+    final_fn = _single_loss(final_cfg["name"], final_cfg, task)
+    _warn_dither_unused(cfg)
+
+    def loss_fn(interm_logits, final_logits, labels,
+                interm_s8=None, final_s8=None, step=None):
+        interm_logits = _at_label_size(_interm(interm_logits), labels)
+        return (w_final * final_fn(final_logits, labels)
+                + w_interm * interm_fn(interm_logits, labels))
+
+    loss_fn.full_res = ("interm_logits", "logits")
+    return loss_fn
+
+
+def _interm(interm_logits):
+    if interm_logits is None:
+        raise ValueError("TwoScaleLoss off the fused route needs the model's "
+                         "full-resolution 'interm_logits'")
+    return interm_logits
 
 
 def build_loss(loss_config: dict, task: int,
                device: str | torch.device = "cuda"):
     """Top-level factory keyed by loss_config['name']; returns
-    loss_fn(outputs, labels, epoch=None, step=None) -> (total, term_dict).
-    `device` is where the loss's inputs must lie."""
+    loss_fn(outputs, labels, epoch=None, step=None) -> (total, term_dict)
+    with its `full_res`. `device` is where the loss's inputs must lie."""
     dev = resolve_device(device)
     name = loss_config.get("name") or \
         ("LossWrapper" if "losses" in loss_config else "CrossEntropyLoss")
     cfg = dict(loss_config)
     cfg.setdefault("experiment", task)
-    if name != "TwoScaleLoss":
-        raise _not_ported(f"loss '{name}'", "items 3 and 11 (losses)")
-    ts = build_two_scale(cfg, task)
 
-    def two_scale_fn(outputs, labels, epoch=None, step=None):
+    def check(labels):
         if labels.device.type != dev.type:
             raise ValueError(f"labels on {labels.device}, loss built for {dev}")
-        v = ts(outputs.get("interm_logits"), outputs.get("logits"), labels,
-               interm_s8=outputs.get("interm_logits_s8"),
-               final_s8=outputs.get("logits_s8"), step=step)
-        return v, {"TwoScaleLoss": v}
 
-    return two_scale_fn
+    if name == "TwoScaleLoss":
+        ts = build_two_scale(cfg, task)
+
+        def two_scale_fn(outputs, labels, epoch=None, step=None):
+            check(labels)
+            v = ts(outputs.get("interm_logits"), outputs.get("logits"), labels,
+                   interm_s8=outputs.get("interm_logits_s8"),
+                   final_s8=outputs.get("logits_s8"), step=step)
+            return v, {"TwoScaleLoss": v}
+
+        two_scale_fn.full_res = ts.full_res
+        return two_scale_fn
+    if name == "LossWrapper":
+        raise _not_ported("the LossWrapper", "item 10")
+    if name == "SemiSupervisedLoss":
+        raise _not_ported("the SemiSupervisedLoss", "item 11")
+    single = _single_loss(name, cfg, task)
+
+    def single_fn(outputs, labels, epoch=None, step=None):
+        check(labels)
+        _maybe_fused_single_lovasz(cfg, outputs)
+        v = single(outputs["logits"], labels)
+        return v, {name: v}
+
+    single_fn.full_res = ("logits",)
+    return single_fn

@@ -1,0 +1,165 @@
+"""Lovász-Softmax on full-resolution logits: the exact sort route and the
+generic bucket route.
+
+Port of the Lovász section of the JAX package's losses/functional.py.
+Logits are NCHW (the JAX package's are NHWC) and labels NHW; the class
+rows are built directly in the (C, P) layout with P ordered (n, h, w), the
+order of the JAX package's flattened NHWC pixels. Pixels of
+`classes_to_ignore` become (error 0, fg 0) entries, which add nothing to
+either route's loss. The errors are computed in float32 from logits of any
+float type, as the JAX package casts them.
+
+Two per-row functions (R, P) -> (R,):
+  * "sort" (the default): the exact Lovász extension. One descending sort
+    of a packed key, fg in the least significant bit of the error's
+    float32 bits (ties between equal errors put fg first), and a backward
+    that scatters the sorted gradient back through the permutation (the
+    JAX custom VJP). The sort is `torch.sort`, as the JAX package leaves
+    its sort to `lax.sort`.
+  * "bucket": the 2048-bucket histogram of losses/bucket_lovasz.py
+    (kernels B3 forward, B4 backward).
+"""
+from __future__ import annotations
+
+import torch
+
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+    bucket_lovasz_per_class)
+
+
+def lovasz_grad_from_sorted(fg_sorted: torch.Tensor) -> torch.Tensor:
+    """Gradient of the Lovász extension w.r.t. errors sorted in descending
+    order (Alg. 1): (..., P) sorted foreground indicators -> (..., P)."""
+    gts = fg_sorted.sum(dim=-1, keepdim=True)
+    intersection = gts - torch.cumsum(fg_sorted, dim=-1)
+    union = gts + torch.cumsum(1.0 - fg_sorted, dim=-1)
+    jaccard = 1.0 - intersection / union
+    return torch.cat([jaccard[..., :1], jaccard[..., 1:] - jaccard[..., :-1]],
+                     dim=-1)
+
+
+def _pack_sort(errors_t: torch.Tensor, fg_t: torch.Tensor):
+    """(sorted errors, sorted fg, permutation): one descending sort of the
+    error's float32 bits with its least significant bit replaced by fg
+    (held in int64, as torch sorts no uint32)."""
+    bits = errors_t.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    packed = (bits & 0xFFFFFFFE) | fg_t.to(torch.int64)
+    key, perm = torch.sort(packed, dim=1, descending=True, stable=True)
+    fg_sorted = (key & 1).to(torch.float32)
+    e_sorted = (key & 0xFFFFFFFE).to(torch.int32).view(torch.float32)
+    return e_sorted, fg_sorted, perm
+
+
+class _SortedLovasz(torch.autograd.Function):
+    """per_row (R,) of the exact Lovász extension; the backward scatters
+    the sorted gradient back to pixel order, scaled by the cotangent."""
+
+    @staticmethod
+    def forward(ctx, errors_t, fg_t):
+        e_sorted, fg_sorted, perm = _pack_sort(errors_t, fg_t)
+        g = lovasz_grad_from_sorted(fg_sorted)
+        ctx.save_for_backward(perm, g)
+        return torch.sum(e_sorted * g, dim=-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        perm, g = ctx.saved_tensors
+        g_orig = torch.empty_like(g).scatter_(1, perm, g)
+        return g_orig * ct.to(g.dtype)[:, None], None
+
+
+def sorted_lovasz_per_class(errors_t: torch.Tensor,
+                            fg_t: torch.Tensor) -> torch.Tensor:
+    """(R, P) non-negative errors + {0, 1} fg -> (R,) exact Lovász terms."""
+    return _SortedLovasz.apply(errors_t, fg_t)
+
+
+def per_class_fn(impl: str):
+    if impl == "bucket":
+        return bucket_lovasz_per_class
+    if impl == "sort":
+        return sorted_lovasz_per_class
+    raise ValueError(f"lovasz_impl must be 'sort' or 'bucket', got '{impl}'")
+
+
+def lovasz_rows(logits: torch.Tensor, labels: torch.Tensor,
+                classes_to_ignore: int | None = None, per_image: bool = False):
+    """(errors_t, fg_t, present) from NCHW logits and NHW labels
+    (the JAX `lovasz_errors_from_logits`): float32 errors |fg - p| and bool
+    fg, both zero on ignored pixels, and the float32 presence of each row's
+    class. Rows are the C classes over all N·H·W pixels, or with
+    `per_image` the N·C (image, class) pairs over each image's H·W pixels;
+    the rows are independent, so one launch over (N·C, H·W) rows computes
+    what the JAX package's vmap over images does."""
+    n, c = logits.shape[:2]
+    lt = logits.to(torch.float32)
+    if per_image:
+        lt, lbl = lt.reshape(n * c, -1), labels.reshape(n, -1)
+    else:
+        lt, lbl = lt.transpose(0, 1).reshape(c, -1), labels.reshape(1, -1)
+    probs_t = torch.softmax(lt.reshape(-1, c, lt.shape[-1]), dim=1)
+    cls = torch.arange(c, device=logits.device)[None, :, None]
+    fg_t = lbl[:, None, :] == cls                    # (n or 1, C, P)
+    if classes_to_ignore is not None:
+        valid = lbl[:, None, :] != classes_to_ignore
+        fg_t = fg_t & valid
+        errors_t = torch.abs(fg_t.to(torch.float32) - probs_t) * valid
+    else:
+        errors_t = torch.abs(fg_t.to(torch.float32) - probs_t)
+    present = fg_t.any(dim=2).to(torch.float32)
+    return (errors_t.reshape(lt.shape), fg_t.reshape(lt.shape),
+            present.reshape(-1))
+
+
+def _mean_over(per_class, weight):
+    return torch.sum(per_class * weight, dim=-1) / torch.clamp_min(
+        torch.sum(weight, dim=-1), 1.0)
+
+
+def lovasz_softmax(logits: torch.Tensor, labels: torch.Tensor,
+                   classes_to_consider=None,
+                   classes_to_ignore: int | None = None,
+                   per_image: bool = False, impl: str = "sort") -> torch.Tensor:
+    """Multi-class Lovász-Softmax (reference losses/LovaszSoftmax.py).
+
+    `classes_to_consider`: None/'present' (default) averages over the
+    classes present in the labels; 'all' over every channel; or an explicit
+    id list (averaged over those of its classes that are present).
+    `classes_to_ignore`: a label value whose pixels are excluded entirely;
+    without it, pixels of the task's ignore id count as background for
+    every class. `per_image`: the loss of each image, then their mean.
+    `impl`: 'sort' (exact) or 'bucket' (the 2048-bucket histogram). Returns
+    a 0-dim float32 tensor."""
+    n, c = logits.shape[:2]
+    fn = per_class_fn(impl)
+    if classes_to_consider in (None, "present", "all"):
+        class_mask = torch.ones(c, device=logits.device)
+    else:
+        class_mask = torch.zeros(c, device=logits.device)
+        class_mask[torch.as_tensor(classes_to_consider, dtype=torch.long)] = 1.0
+    errors_t, fg_t, present = lovasz_rows(logits, labels, classes_to_ignore,
+                                          per_image)
+    per_class = fn(errors_t, fg_t)
+    rows = n if per_image else 1
+    weight = class_mask.repeat(rows)
+    if classes_to_consider != "all":
+        weight = weight * present
+    losses = _mean_over(per_class.reshape(rows, c), weight.reshape(rows, c))
+    return losses.mean()
+
+
+def fused_two_scale_lovasz(interm_logits: torch.Tensor,
+                           final_logits: torch.Tensor, labels: torch.Tensor,
+                           w_interm: float, w_final: float,
+                           classes_to_ignore: int | None = None,
+                           impl: str = "sort") -> torch.Tensor:
+    """TwoScaleLoss(Lovász, Lovász) at label resolution with both scales'
+    class rows stacked into ONE (2C, P) call of the per-row function."""
+    c = final_logits.shape[1]
+    e_i, f_i, pr_i = lovasz_rows(interm_logits, labels, classes_to_ignore)
+    e_f, f_f, pr_f = lovasz_rows(final_logits, labels, classes_to_ignore)
+    per_class = per_class_fn(impl)(torch.cat([e_i, e_f], dim=0),
+                                   torch.cat([f_i, f_f], dim=0))
+    loss_i = _mean_over(per_class[:c], pr_i)
+    loss_f = _mean_over(per_class[c:], pr_f)
+    return w_interm * loss_i + w_final * loss_f

@@ -29,34 +29,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist imp
     fu_histogram, fu_mats)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_edges import (
     bucket_midpoints_np)
-
-
-def losses_and_tables(hist: torch.Tensor):
-    """(R, B, 4) [n_fg, n_bg, se_fg, se_bg] -> per_row (R,), gts (R,),
-    g_fg / g_bg (R, B) bucket gradients."""
-    n1 = hist[..., 0].flip(1)   # descending bucket order
-    n0 = hist[..., 1].flip(1)
-    se1 = hist[..., 2].flip(1)
-    se0 = hist[..., 3].flip(1)
-    g_total = n1.sum(dim=1, keepdim=True)
-    cum_n = torch.cumsum(n1 + n0, dim=1)
-    cum_f = torch.cumsum(n1, dim=1)
-    s = cum_n - (n1 + n0)
-    f = cum_f - n1
-
-    def jacc(i, fo):
-        union = g_total + i - fo
-        pos = union > 0
-        return 1.0 - torch.where(
-            pos, (g_total - fo) / torch.where(pos, union, 1.0), 1.0)
-
-    j_start = jacc(s, f)
-    j_mid = jacc(s + n1, f + n1)
-    j_end = jacc(s + n1 + n0, f + n1)
-    g_fg = (j_mid - j_start) / torch.clamp_min(n1, 1.0)
-    g_bg = (j_end - j_mid) / torch.clamp_min(n0, 1.0)
-    per_row = torch.sum(se1 * g_fg + se0 * g_bg, dim=1)
-    return per_row, g_total[:, 0], g_fg.flip(1), g_bg.flip(1)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+    grad_table, losses_and_tables)
 
 
 def bucket_split(n_buckets: int) -> tuple[int, int]:
@@ -109,17 +83,6 @@ def fu_core_bwd(parts, labels, table, n_cls: int, out_hw: tuple[int, int],
     dls = fu_grad(ls, labels, mats, table, n_cls=n_cls, n_buckets=n_buckets,
                   edges=edges, seed=seed, dither=dither)
     return dls.split(n_cls, dim=1)
-
-
-def grad_table(g_fg: torch.Tensor, g_bg: torch.Tensor,
-               ct: torch.Tensor) -> torch.Tensor:
-    """(R, 2, B) [bg, fg] gradient table: the bucket gradients scaled by
-    the cotangent of each row's loss, rounded to bf16 and back (the TPU
-    kernel's `tbl_ref[...].astype(bfloat16)`, done here so kernel and plain
-    version read the same float32 values)."""
-    ct = ct.to(torch.float32)[:, None]
-    table = torch.stack([g_bg * ct, g_fg * ct], dim=1)
-    return table.to(torch.bfloat16).to(torch.float32).contiguous()
 
 
 class _TwoScaleS8(torch.autograd.Function):

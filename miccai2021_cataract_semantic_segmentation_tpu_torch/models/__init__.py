@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import HRNetv2  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import OCRNet  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import ResNetBackbone  # noqa: F401
 
@@ -22,18 +23,22 @@ def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
     from `seed` (the caller's global RNG state is left as it was)."""
     dev = resolve_device(device)
     name = graph.get("model", "OCRNet")
-    if name != "OCRNet":
+    if name not in ("OCRNet", "HRNetv2"):
         item = _LATER.get(name, "item 12 (the remaining graphs)")
         raise NotImplementedError(
             f"graph '{name}' is not ported yet (ROADMAP Queue A {item})")
     backbone = graph.get("backbone", "resnet101")
-    if backbone.startswith("hrnetv2") or graph.get("projector") is not None:
+    if name == "OCRNet" and (backbone.startswith("hrnetv2")
+                             or graph.get("projector") is not None):
         raise NotImplementedError(
             "OCRNet on HRNet and the projector branch are not ported yet "
             "(ROADMAP Queue A item 12)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = OCRNet(task=task, backbone=backbone,
-                       out_stride=graph.get("out_stride", 8),
-                       dropout=graph.get("dropout", 0.0))
+        if name == "HRNetv2":
+            model = HRNetv2(task=task, width=graph.get("width", 32))
+        else:
+            model = OCRNet(task=task, backbone=backbone,
+                           out_stride=graph.get("out_stride", 8),
+                           dropout=graph.get("dropout", 0.0))
     return model.to(dev).eval()

@@ -1,7 +1,8 @@
 """Shared NCHW building blocks with the reference's torch layer semantics.
 
 Port of the JAX package's models/layers.py. BatchNorm uses eps 1e-5 and
-torch momentum 0.1 (flax momentum 0.9 is torch momentum 0.1), and updates
+torch momentum 0.1 by default (flax momentum 0.9 is torch momentum 0.1;
+HRNet's torch 0.01 is flax 0.99), and updates
 its running variance in train mode with the biased batch variance, as
 flax does (`BatchNorm2d`). Modules keep the reference's torch state-dict
 names, so a published checkpoint loads with `load_state_dict(strict=True)`.
@@ -59,8 +60,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def batch_norm(channels: int) -> BatchNorm2d:
-    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+def batch_norm(channels: int, momentum: float = BN_MOMENTUM) -> BatchNorm2d:
+    """BatchNorm at torch `momentum` (1 - the flax momentum)."""
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=momentum)
 
 
 class ConvBN(nn.Sequential):
@@ -69,12 +71,12 @@ class ConvBN(nn.Sequential):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, dilation: int = 1,
-                 bias: bool = False):
+                 bias: bool = False, bn_momentum: float = BN_MOMENTUM):
         p = torch_pad(kernel_size, stride, dilation)
         super().__init__(
             nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                       padding=p, dilation=dilation, bias=bias),
-            batch_norm(out_channels),
+            batch_norm(out_channels, bn_momentum),
             nn.ReLU(inplace=True))
 
 

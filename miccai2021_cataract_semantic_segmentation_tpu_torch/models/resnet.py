@@ -1,11 +1,14 @@
-"""torchvision-compatible dilated ResNet backbones (Bottleneck family).
+"""torchvision-compatible dilated ResNet backbones (Bottleneck family) and
+the residual blocks HRNet builds from.
 
 Port of the JAX package's models/resnet.py with torchvision's module names
 (`conv1`, `bn1`, `layer1.0.conv2`, `layer2.0.downsample.0`, ...), so the
 reference checkpoints load directly. `dilate_stages` is torchvision's
 `replace_stride_with_dilation` for (layer2, layer3, layer4); the first
 block of a dilated layer keeps the previous dilation for its 3x3 conv.
-The BasicBlock backbones (ResNet-18/34) come with the other graphs.
+`BasicBlock` serves HRNet's branches; the BasicBlock backbones
+(ResNet-18/34) come with the other graphs. Both blocks take the torch
+BatchNorm momentum of their graph (`bn_momentum`).
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import batch_norm
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
+    BN_MOMENTUM, batch_norm)
 
 # name: blocks per stage (Bottleneck, groups 1, base width 64)
 _ARCHS = {
@@ -25,24 +29,50 @@ _ARCHS = {
 OUTPUT_CHANNELS = (256, 512, 1024, 2048)
 
 
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, downsample: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride,
+                               padding=dilation, dilation=dilation, bias=False)
+        self.bn1 = batch_norm(planes, bn_momentum)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn2 = batch_norm(planes, bn_momentum)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = nn.Sequential(
+            nn.Conv2d(in_planes, planes, 1, stride=stride, bias=False),
+            batch_norm(planes, bn_momentum)) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return self.relu(y + identity)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False):
+                 dilation: int = 1, downsample: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
-        self.bn1 = batch_norm(planes)
+        self.bn1 = batch_norm(planes, bn_momentum)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
                                padding=dilation, dilation=dilation, bias=False)
-        self.bn2 = batch_norm(planes)
+        self.bn2 = batch_norm(planes, bn_momentum)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = batch_norm(out)
+        self.bn3 = batch_norm(out, bn_momentum)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
             nn.Conv2d(in_planes, out, 1, stride=stride, bias=False),
-            batch_norm(out)) if downsample else None
+            batch_norm(out, bn_momentum)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)

@@ -1,7 +1,8 @@
-"""flax -> torch weight bridge for OCRNet.
+"""flax -> torch weight bridge for OCRNet and HRNetv2.
 
 The inverse of the JAX package's train/port_torch.py (`port_ocrnet`,
-`port_resnet_backbone`, `_resnet_flax_path`): it takes a flax `params` /
+`port_resnet_backbone`, `_resnet_flax_path`, `port_hrnet`): it takes a
+flax `params` /
 `batch_stats` tree given as nested dicts of numpy arrays and returns the
 port's state dict under the reference's torch names. Conv kernels go HWIO
 -> OIHW; BatchNorm scale/bias/mean/var go to weight/bias/running_mean/
@@ -30,14 +31,20 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 
 
-def _module_prefix(path: tuple[str, ...]) -> str:
-    """flax module path -> torch module prefix."""
+def _block_prefix(path) -> str:
+    """A ResNet block's flax path ("layer1_0", "downsample_1", ...) ->
+    its torch names ("layer1.0", "downsample.1", ...)."""
+    out = []
+    for m in path:
+        hit = re.fullmatch(r"(layer\d+|downsample)_(\d+)", m)
+        out.append(f"{hit.group(1)}.{hit.group(2)}" if hit else m)
+    return ".".join(out)
+
+
+def _ocrnet_prefix(path: tuple[str, ...]) -> str:
+    """OCRNet's flax module path -> torch module prefix."""
     if path[0] == "backbone":
-        out = []
-        for m in path[1:]:
-            hit = re.fullmatch(r"(layer\d+|downsample)_(\d+)", m)
-            out.append(f"{hit.group(1)}.{hit.group(2)}" if hit else m)
-        return "backbone." + ".".join(out)
+        return "backbone." + _block_prefix(path[1:])
     if path[:2] == ("ocr", "attn"):
         i = int(path[3][-1])                   # conv{i} / bn{i}
         idx = 3 * i + (1 if path[3].startswith("bn") else 0)
@@ -55,13 +62,43 @@ def _walk(tree, path=()):
             yield path + (k,), np.asarray(v)
 
 
-def bridge_ocrnet(params, batch_stats) -> dict[str, torch.Tensor]:
-    """flax OCRNet params/batch_stats -> the port's OCRNet state dict."""
+_CONV_BN = {"conv": "0", "bn": "1"}
+
+
+def _hrnet_prefix(path: tuple[str, ...]) -> str:
+    """HRNetv2's flax module path -> torch module prefix (the inverse of
+    `port_hrnet`)."""
+    head, rest = path[0], path[1:]
+    if head in ("stem1", "stem2"):
+        return rest[0] + head[-1]               # conv1, bn1, conv2, bn2
+    if head.startswith("layer1_"):
+        return _block_prefix(path)
+    hit = re.fullmatch(r"trans(\d)_(\d)", head)
+    if hit:                              # branch i of stage s
+        s, i = int(hit.group(1)), int(hit.group(2))
+        new = ".0" if i >= s - 1 else ""  # a new branch's extra Sequential
+        return f"transition{s - 1}.{i}{new}.{_CONV_BN[rest[0]]}"
+    if head.startswith("stage"):
+        base = f"{head}.0"
+        hit = re.fullmatch(r"branch(\d)", rest[0])
+        if hit:
+            return (f"{base}.branches.{hit.group(1)}.{rest[1][len('block'):]}."
+                    + _block_prefix(rest[2:]))
+        ij = rest[0][len("fuse"):].split("_")     # fuse{i}_{j}[_{k}]
+        return f"{base}.fuse_layers.{'.'.join(ij)}.{_CONV_BN[rest[1]]}"
+    if head == "head":
+        return f"last_layer.{_CONV_BN[rest[0]]}"
+    if head == "cls":
+        return "last_layer.3"
+    raise KeyError(f"no torch name for flax module {path}")
+
+
+def _bridge(params, batch_stats, module_prefix) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     bn_modules = []
     for tree in (params, batch_stats):
         for path, v in _walk(tree):
-            prefix = _module_prefix(path[:-1])
+            prefix = module_prefix(path[:-1])
             leaf = path[-1]
             if leaf == "kernel":
                 v = np.transpose(v, (3, 2, 0, 1))       # HWIO -> OIHW
@@ -71,3 +108,13 @@ def bridge_ocrnet(params, batch_stats) -> dict[str, torch.Tensor]:
     for prefix in bn_modules:
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def bridge_ocrnet(params, batch_stats) -> dict[str, torch.Tensor]:
+    """flax OCRNet params/batch_stats -> the port's OCRNet state dict."""
+    return _bridge(params, batch_stats, _ocrnet_prefix)
+
+
+def bridge_hrnet(params, batch_stats) -> dict[str, torch.Tensor]:
+    """flax HRNetv2 params/batch_stats -> the port's HRNetv2 state dict."""
+    return _bridge(params, batch_stats, _hrnet_prefix)

@@ -12,6 +12,7 @@ tests).
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 
 import torch
@@ -68,10 +69,21 @@ def eval_preprocess(images_u8: torch.Tensor, spec: EvalSpec | None,
 
 
 def _forward(model, x, precision: str, full_res=("logits",)) -> dict:
+    """The model's outputs; `full_res` goes only to a model whose forward
+    takes it (one that also gives stride-8 logits, such as OCRNet); the
+    others always give their full-resolution logits."""
+    kwargs = ({"full_res": tuple(dict.fromkeys(full_res))}
+              if "full_res" in inspect.signature(model.forward).parameters
+              else {})
     if precision == "bf16":
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
-            return model(x, full_res=full_res)
-    return model(x.to(next(model.parameters()).dtype), full_res=full_res)
+            return model(x, **kwargs)
+    return model(x.to(next(model.parameters()).dtype), **kwargs)
+
+
+def _loss_full_res(loss_fn) -> tuple[str, ...]:
+    """The full-resolution outputs a loss reads (`build_loss` sets them)."""
+    return tuple(getattr(loss_fn, "full_res", ()))
 
 
 def _to_device(a, dev: torch.device) -> torch.Tensor:
@@ -107,7 +119,8 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
         model.eval()
         x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
                                  _to_device(labels_u8, dev))
-        outputs = _forward(model, x, precision)
+        outputs = _forward(model, x, precision,
+                           ("logits",) + _loss_full_res(loss_fn))
         total, _ = loss_fn(outputs, lbl, epoch=epoch)
         logits = outputs["logits"]
         return logits, lbl, confusion_matrix(logits, lbl), total
@@ -146,9 +159,11 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     advances. Metrics, left on the device: `loss`, the loss's terms,
     `confusion_matrix` and `grad_norm` (the global L2 norm of the unclipped
     gradients). `train_metrics="s8"` counts the confusion matrix from the
-    stride-8 logits against `downsample_labels`, and the forward then
-    computes no full-resolution upsample at all; "full" counts it from the
-    full-resolution logits."""
+    stride-8 logits (`logits_s8`, else `logits_s8_acf`) against
+    `downsample_labels`, or from the full-resolution logits of a model that
+    gives neither; "full" counts it from the full-resolution logits. The
+    forward computes the full-resolution outputs that the loss
+    (`loss_fn.full_res`) and the metric read, and no others."""
     if semi is not None:
         raise _not_ported("semi-supervised training", "11")
     if has_point_head:
@@ -159,7 +174,8 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
         raise ValueError(f"train_metrics must be 's8' or 'full', got "
                          f"'{train_metrics}'")
     dev = resolve_device(device)
-    full_res = () if train_metrics == "s8" else ("logits",)
+    full_res = _loss_full_res(loss_fn) + (
+        () if train_metrics == "s8" else ("logits",))
 
     def step(state: TrainState, images_u8, labels_u8, epoch,
              draws: AugmentDraws | None = None) -> dict:
@@ -178,8 +194,8 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
         with torch.no_grad():
             grad_norm = global_norm(grads)
             state.apply_gradients(grads)
-            if train_metrics == "s8":
-                s8 = outputs["logits_s8"]
+            s8 = outputs.get("logits_s8", outputs.get("logits_s8_acf"))
+            if train_metrics == "s8" and s8 is not None:
                 cm = confusion_matrix(s8, downsample_labels(lbl, s8.shape[2:]))
             else:
                 cm = confusion_matrix(outputs["logits"], lbl)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports nothing of JAX, flax, optax or the JAX
-package (its validation and train paths run with them blocked), its entry
+package (its validation and train paths, OCRNet's and HRNetv2's, run with
+them blocked), its entry
 points refuse to run on a missing card unless asked for the CPU, and its
 CPU path launches no kernel."""
 import ast
@@ -66,9 +67,17 @@ _, _, cm, loss = step(model, images[:1], labels[:1], 0)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
 res = train_steps(model, dict(cfg, precision="fp32"), images, labels,
                   [np.array([0, 1])], device="cpu")
+hr_cfg = dict(load_config("configs/DeepLabv3_rf_lvsz.json"), precision="fp32",
+              graph={"model": "HRNetv2", "width": 4},
+              loss={"name": "LovaszSoftmax", "lovasz_impl": "bucket"})
+hr = build_model(hr_cfg["graph"], 2, device="cpu")
+hr_res = train_steps(hr, hr_cfg, images, labels, [np.array([0, 1])], device="cpu")
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
+hr_val = validate(hr, hr_cfg, images, labels, device="cpu", batch_size=2)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
-                  "train_loss": res["loss"],
+                  "train_loss": res["loss"], "hr_train_loss": hr_res["loss"],
+                  "hr_valid_loss": hr_val["valid_loss"],
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
 """
@@ -82,7 +91,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert len(res["modules"]) >= 20
     assert np.isfinite(res["loss"]) and res["cm"] > 0
     assert np.isfinite(res["train_loss"])
-    assert res["launches"] == {"fu_hist": 0, "fu_grad": 0}
+    assert np.isfinite(res["hr_train_loss"]) and np.isfinite(res["hr_valid_loss"])
+    assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 
 
@@ -145,7 +155,7 @@ def test_cpu_path_launches_no_kernel():
                    rng.integers(0, 18, (3, 30, 40), dtype=np.uint8),
                    device="cpu", batch_size=2)
     assert np.isfinite(res["valid_loss"])
-    assert {k: v.launches for k, v in KERNELS.items()} == {"fu_hist": 0, "fu_grad": 0}
+    assert {k: v.launches for k, v in KERNELS.items()} == dict.fromkeys(KERNELS, 0)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -199,7 +199,7 @@ def test_torch_pad_matches():
 
 
 @pytest.mark.parametrize("graph", [{"model": "DeepLabv3"}, {"model": "UPerNet"},
-                                   {"model": "HRNetv2"},
+                                   {"model": "FCN"},
                                    {"model": "OCRNet", "backbone": "hrnetv2_w18"},
                                    {"model": "OCRNet", "backbone": "resnet18"}])
 def test_graphs_of_later_slices_raise(graph):
