@@ -60,10 +60,31 @@ Phases (any failure raises and the run exits non-zero):
  12. the HRNetv2 train step on the card against the CPU as phase 8 does it
      for OCRNet, at width 8 (a reduction of width for the CPU's sake), with
      the pairs whose bucket differs between the two sides counted (see
-     MOVED_TOL).
-The line before the last line of stdout is the card's name and power limit
-as nvidia-smi reports them; the line before it is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.
+     MOVED_TOL);
+ 13. kernels B5/B7 (the v3 route's forward histogram on full-resolution
+     grids, two scales or one) and B6/B8 (its backward) against their plain
+     versions at the flagship's and the DeepLabv3 cell's grids and at edge
+     shapes (NCHW_CASES): row totals equal, histogram L1 <= 1e-3 of the
+     counted pairs, the backward's ids reproduce the forward's counts
+     exactly, gradients equal to the plain arithmetic at those ids within
+     float32 rounding, two runs bit-equal, dither under v3 refused; with
+     their times, the plain versions' and their bounds;
+ 14. the DeepLabv3-R50 os8 cell at full width: configs/DeepLabv3_rf_lvsz.json
+     with its loss replaced by {"name": "LovaszSoftmax", "lovasz_impl":
+     "bucket"}, otherwise as phase 11 runs HRNetv2 (one B1 per eval-loss
+     batch and per train step, one B2 per step, one batch's loss against
+     B1's plain version, the overfit, the step's time and profile); then
+     one `validate` of DeepLabv3+, whose B1 reads a stride-4 source;
+ 15. the v3 route (`_USE_V3` set around the calls): `train_steps` of the
+     DeepLabv3 cell (one B7 and one B8 per step) and of the OCRNet flagship
+     (one B5 and one B6), one batch's loss and pre-upsample gradient
+     against v4, and each step's time on both routes, in turns, with their
+     profiles;
+ 16. the DeepLabv3 train step on the card against the CPU, as phase 8.
+Each phase prints its wall time. The line before the last line of stdout
+is the card's name and power limit as nvidia-smi reports them; the line
+before it is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -137,6 +158,23 @@ def blocky_labels(rng, n, h, w, n_values, block):
     """(n, h, w) int labels in [0, n_values) constant on block x block tiles."""
     grid = rng.integers(0, n_values, (n, -(-h // block), -(-w // block)))
     return np.repeat(np.repeat(grid, block, 1), block, 2)[:, :h, :w]
+
+
+def _record(kernel, max_abs, ms, plain_ms, n_bytes, ops, what: str) -> dict:
+    """A kernel's line of the `kernels` record (launches filled in later),
+    with its bound from the bytes and operations of the timed inputs;
+    prints the timing."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    print(f"{what} timing: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
+          f"events, median of 20; plain of 5 from B3 on); bound: {n_bytes} "
+          f"bytes -> {t_bytes!r} ms, {ops!r} f32 ops -> {t_ops!r} ms",
+          flush=True)
+    return {"name": kernel.name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": None, "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -220,18 +258,8 @@ def check_b1(dev) -> dict:
     plain_ms = cuda_ms(lambda: fu_histogram_plain(f["ls"], f["lbl"],
                                                   f["mats"], **f["kw"]))
     n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["out_numel"])
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = B1_OPS_PER_PAIR * f["pairs"] / PEAK_F32_OPS_S * 1e3
-    print(f"B1 flagship timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
-          f"ms (CUDA events, median of 20); bound: {n_bytes} bytes -> "
-          f"{t_bytes!r} ms, {B1_OPS_PER_PAIR * f['pairs']} f32 ops -> "
-          f"{t_ops!r} ms", flush=True)
-    return {"name": fu_histogram.name, "route": "cuda",
-            "source": fu_histogram.source, "replaces": fu_histogram.replaces,
-            "launches": None, "max_abs_err": f["max_abs"], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    return _record(fu_histogram, f["max_abs"], kernel_ms, plain_ms, n_bytes,
+                   B1_OPS_PER_PAIR * f["pairs"], "B1 flagship")
 
 
 # ---------------------------------------------------------------------------
@@ -310,18 +338,9 @@ def check_b2(dev) -> dict:
     plain_ms = cuda_ms(lambda: fu_grad_plain(*args, **f["kw"]))
     n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["table"].numel()
                    + f["out_numel"])
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     ops = b2_ops(f["pairs"], f["ls"].shape[3], f["lbl"].shape[2])
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
-    print(f"B2 flagship timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
-          f"ms (CUDA events, median of 20); bound: {n_bytes} bytes -> "
-          f"{t_bytes!r} ms, {ops!r} f32 ops -> {t_ops!r} ms", flush=True)
-    return {"name": fu_grad.name, "route": "cuda", "source": fu_grad.source,
-            "replaces": fu_grad.replaces, "launches": None,
-            "max_abs_err": f["max_abs"], "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    return _record(fu_grad, f["max_abs"], kernel_ms, plain_ms, n_bytes, ops,
+                   "B2 flagship")
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +440,8 @@ _GROUPS = (("B1 fu_hist", ("fu_hist",)),
            ("B2 fu_grad", ("fu_grad",)),
            ("B3 bucket_hist", ("bucket_hist",)),
            ("B4 bucket_grad", ("bucket_grad",)),
+           ("B5/B7 nchw_hist", ("nchw_hist",)),
+           ("B6/B8 nchw_grad", ("nchw_grad",)),
            ("copies", ("memcpy", "memset")),
            ("layout NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
            ("optimizer (Adam)", ("adam", "multi_tensor", "foreach")),
@@ -861,21 +882,11 @@ def check_b3(dev) -> dict:
             kernel_ms = cuda_ms(lambda: bucket_histogram(e, fg))
             plain_ms = cuda_ms(lambda: bucket_histogram_plain(e, fg), reps=5)
             n_bytes = 4 * e.numel() + fg.numel() + 4 * got.numel()
-            t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-            t_ops = B3_OPS_PER_PAIR * e.numel() / PEAK_F32_OPS_S * 1e3
-            print(f"B3 cell timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
-                  f"ms (CUDA events, median of 20 and of 5); bound: {n_bytes} "
-                  f"bytes -> {t_bytes!r} ms, {B3_OPS_PER_PAIR * e.numel()} "
-                  f"ops -> {t_ops!r} ms; {e.numel()} pairs, {hot!r} of them "
-                  "in buckets 0 and 2047", flush=True)
-            record = {"name": bucket_histogram.name, "route": "cuda",
-                      "source": bucket_histogram.source,
-                      "replaces": bucket_histogram.replaces, "launches": None,
-                      "max_abs_err": float((got - ref).abs().max()),
-                      "ms": kernel_ms, "plain_ms": plain_ms,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": None}
+            record = _record(bucket_histogram, float((got - ref).abs().max()),
+                             kernel_ms, plain_ms, n_bytes,
+                             B3_OPS_PER_PAIR * e.numel(),
+                             f"B3 cell ({e.numel()} pairs, {hot!r} of them "
+                             "in buckets 0 and 2047)")
         del e, fg, got, again, ref, se64
     return record
 
@@ -906,20 +917,9 @@ def check_b4(dev) -> dict:
             kernel_ms = cuda_ms(lambda: bucket_gather(e, fg, table))
             plain_ms = cuda_ms(lambda: bucket_gather_plain(e, fg, table), reps=5)
             n_bytes = 4 * e.numel() + fg.numel() + 4 * table.numel() + 4 * got.numel()
-            t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-            t_ops = B4_OPS_PER_PAIR * e.numel() / PEAK_F32_OPS_S * 1e3
-            print(f"B4 cell timing: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
-                  f"ms (CUDA events, median of 20 and of 5); bound: {n_bytes} "
-                  f"bytes -> {t_bytes!r} ms, {B4_OPS_PER_PAIR * e.numel()} ops "
-                  f"-> {t_ops!r} ms", flush=True)
-            record = {"name": bucket_gather.name, "route": "cuda",
-                      "source": bucket_gather.source,
-                      "replaces": bucket_gather.replaces, "launches": None,
-                      "max_abs_err": float((got - ref).abs().max()),
-                      "ms": kernel_ms, "plain_ms": plain_ms,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": None}
+            record = _record(bucket_gather, float((got - ref).abs().max()),
+                             kernel_ms, plain_ms, n_bytes,
+                             B4_OPS_PER_PAIR * e.numel(), "B4 cell")
         del e, fg, got, again, ref
     return record
 
@@ -935,26 +935,26 @@ def hrnet_config(width: int = 32) -> dict:
                 loss=dict(HR_LOSS))
 
 
-def run_hrnet_cell(dev, cfg, n_frames: int = 29, hw=(540, 960),
-                   profile: bool = True) -> dict:
-    """`validate` and `train_steps` of the HRNetv2 cell with the kernels'
-    counts read around each, one batch's loss against B3's plain version,
-    a 10-step overfit, the train step's time and profile; returns the
-    launch counts of `train_steps`."""
+def run_cell(dev, cfg, what: str, expect: dict, batch_check,
+             n_frames: int = 29, hw=(540, 960), profile: bool = True) -> dict:
+    """`validate` and `train_steps` of one cell with the kernels' counts
+    read around each (`expect["eval"]` launches per eval-loss batch,
+    `expect["train"]` per train step, none of any other kernel),
+    `batch_check(model, images, labels, eval_step, spec)` on one full
+    batch, a
+    10-step overfit of one batch (pad only) whose loss must fall at every
+    step, the train step's time and profile; returns the launch counts of
+    `train_steps`."""
     import copy
 
     from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
-        KERNELS, bucket_histogram_plain, launch_counts, reset_launches)
+        KERNELS, launch_counts, reset_launches)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
-    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
-        bucket_lovasz_per_class)
-    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
-        lovasz_rows, lovasz_softmax)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
     from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
-        eval_preprocess, eval_spec, make_eval_loss_step, make_train_step)
+        eval_spec, make_eval_loss_step, make_train_step)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
         train_metrics_source, train_steps)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
@@ -971,28 +971,91 @@ def run_hrnet_cell(dev, cfg, n_frames: int = 29, hw=(540, 960),
     eval_step(model, images[:bs], labels[:bs], 0)        # warm-up
     torch.cuda.synchronize()
 
+    def expected(per, n):
+        return dict(dict.fromkeys(KERNELS, 0), **{k: v * n for k, v in per.items()})
+
     reset_launches()
     res = validate(model, cfg, images, labels, device=dev, batch_size=bs)
     torch.cuda.synchronize()
     val_launches = launch_counts()
     cm = res["confusion_matrix"]
-    expected = int((pad_reflect_hw(torch.as_tensor(labels)) < n_cls).sum())
-    print("HRNetv2 validate: " + json.dumps({k: res[k] for k in (
+    n_counted = int((pad_reflect_hw(torch.as_tensor(labels)) < n_cls).sum())
+    print(f"{what} validate: " + json.dumps({k: res[k] for k in (
         "valid_loss", "miou", "pa", "pac")}) + f"; {n_params} parameters; "
           f"kernel launches {val_launches}; cm total {int(cm.sum())} of "
-          f"{expected}", flush=True)
-    if val_launches != dict(dict.fromkeys(KERNELS, 0), bucket_hist=n_full):
+          f"{n_counted}", flush=True)
+    if val_launches != expected(expect["eval"], n_full):
         raise AssertionError(f"kernel launches in validate {val_launches}, "
-                             f"expected {n_full} of B3 and no other")
-    if not (np.isfinite(res["valid_loss"]) and int(cm.sum()) == expected):
-        raise AssertionError(f"HRNetv2 validate: loss {res['valid_loss']}, "
-                             f"cm {int(cm.sum())} of {expected}")
+                             f"expected {expect['eval']} per batch ({n_full})")
+    if not (np.isfinite(res["valid_loss"]) and int(cm.sum()) == n_counted):
+        raise AssertionError(f"{what} validate: loss {res['valid_loss']}, "
+                             f"cm {int(cm.sum())} of {n_counted}")
+    batch_check(model, images[:bs], labels[:bs], eval_step, spec)
 
-    # one full batch's loss: the step's, B3's plain version's, the sort's
+    batches = list(np.arange(n_full * bs).reshape(n_full, bs))
+    train_steps(copy.deepcopy(model), cfg, images, labels, batches[:1], device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_steps(model, cfg, images, labels, batches, device=dev)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what} train_steps: " + json.dumps({k: res[k] for k in (
+        "loss", "miou", "pa", "step_losses", "seconds", "frames_per_s")})
+          + f"; {n_full} steps of {bs} frames; peak memory {peak} bytes; "
+          f"kernel launches {launches}; cm total "
+          f"{int(res['confusion_matrix'].sum())}", flush=True)
+    if launches != expected(expect["train"], n_full):
+        raise AssertionError(f"kernel launches in train_steps {launches}, "
+                             f"expected {expect['train']} per step ({n_full})")
+    if not np.isfinite(res["step_losses"]).all():
+        raise AssertionError(f"{what} train losses {res['step_losses']}")
+
+    # the overfit sees one batch under the pad alone, so that each step's
+    # loss is the same function of the weights
+    fit_cfg = dict(cfg, data=dict(cfg["data"], transforms=["pad"]))
+    fit = train_steps(copy.deepcopy(model), fit_cfg, images, labels,
+                      [batches[0]] * 10, device=dev, seed=1)
+    losses = fit["step_losses"]
+    print(f"{what} overfit, 10 steps on one batch (pad only): losses {losses}",
+          flush=True)
+    if not (np.isfinite(losses).all() and all(np.diff(losses) < 0)):
+        raise AssertionError(f"the {what} overfit loss does not fall at every "
+                             f"step: {losses}")
+
+    state = res["state"]
+    step = make_train_step(loss_fn, device_spec(cfg["data"]["transforms"]), task,
+                           device=dev, precision=cfg.get("precision", "bf16"),
+                           train_metrics=train_metrics_source(cfg))
+    imgs, lbls = images[:bs], labels[:bs]
+    step_ms = cuda_ms(lambda: step(state, imgs, lbls, 0), reps=10, warmup=2)
+    print(f"{what} train step: {step_ms!r} ms (CUDA events, median of 10) = "
+          f"{bs / step_ms * 1e3!r} frames/s", flush=True)
+    if profile:
+        groups = profile_step(lambda: step(state, imgs, lbls, 0), f"{what} train")
+        total = sum(groups.values())
+        shares = {g: v / total for g, v in groups.items() if g.startswith("B")}
+        print(f"{what} train step shares of the device kernel time: "
+              + json.dumps(shares), flush=True)
+    return launches
+
+
+def hrnet_batch_check(model, images, labels, eval_step, spec) -> None:
+    """One full batch's HRNetv2 loss: the step's, B3's, B3's plain
+    version's (equal) and the exact sort's."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import bucket_histogram_plain
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        bucket_lovasz_per_class)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_rows, lovasz_softmax)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_preprocess)
+
+    dev = next(model.parameters()).device
     with torch.inference_mode():
-        _, _, _, step_loss = eval_step(model, images[:bs], labels[:bs], 0)
-        x, lbl = eval_preprocess(torch.as_tensor(images[:bs]).to(dev), spec,
-                                 torch.as_tensor(labels[:bs]).to(dev))
+        _, _, _, step_loss = eval_step(model, images, labels, 0)
+        x, lbl = eval_preprocess(torch.as_tensor(images).to(dev), spec,
+                                 torch.as_tensor(labels).to(dev))
         with torch.autocast(dev.type, dtype=torch.bfloat16):
             logits = model(x)["logits"]
         e, fg, present = lovasz_rows(logits, lbl)
@@ -1007,53 +1070,354 @@ def run_hrnet_cell(dev, cfg, n_frames: int = 29, hw=(540, 960),
     if loss_k != loss_p or abs(loss_k - float(step_loss)) > 1e-6:
         raise AssertionError("HRNetv2 batch loss: kernel, plain and step disagree")
 
-    batches = list(np.arange(n_full * bs).reshape(n_full, bs))
-    train_steps(copy.deepcopy(model), cfg, images, labels, batches[:1], device=dev)
+
+def deeplab_batch_check(model, images, labels, eval_step, spec) -> None:
+    """One full batch's DeepLab loss: the step's, B1's at R = C rows and
+    B1's plain version's (within 1e-5, B1's convention)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        fu_histogram, fu_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        fused_bucket_lovasz_s8)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_preprocess)
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        _, _, _, step_loss = eval_step(model, images, labels, 0)
+        x, lbl = eval_preprocess(torch.as_tensor(images).to(dev), spec,
+                                 torch.as_tensor(labels).to(dev))
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            s8 = model(x, full_res=())["logits_s8"]
+        loss_k = float(fused_bucket_lovasz_s8(s8, lbl, histogram=fu_histogram))
+        loss_p = float(fused_bucket_lovasz_s8(s8, lbl, histogram=fu_histogram_plain))
+        del x, lbl, s8
+    print(f"DeepLabv3 batch 0 loss: step {float(step_loss)!r}, kernel {loss_k!r}, "
+          f"plain B1 {loss_p!r}", flush=True)
+    if abs(loss_k - loss_p) > 1e-5 or abs(loss_k - float(step_loss)) > 1e-6:
+        raise AssertionError("DeepLabv3 batch loss: kernel, plain and step disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: B5-B8 against their plain versions
+# ---------------------------------------------------------------------------
+
+# float32 operations per counted (pixel, class row) pair: B5/B7 5 for the
+# softmax (max, subtract, exp, sum, divide) and 2 for e = |fg - p|; B6/B8
+# those 7, 1 for the sign of the gathered de and 4 for the softmax VJP
+NCHW_HIST_OPS_PER_PAIR = 7
+NCHW_GRAD_OPS_PER_PAIR = 7 + 1 + 4
+
+NCHW_CASES = [
+    # name, scales run, N, C, s8 (hs, ws) or None for raw grids, (H, W), B,
+    # edges, ignore class
+    ("flagship", (2,), 8, 17, (68, 120), (544, 960), 1024, "uniform", None),
+    ("deeplab_cell", (1,), 8, 17, (68, 120), (544, 960), 2048, "uniform", None),
+    ("c5", (2, 1), 2, 5, (17, 30), (136, 240), 1024, "uniform", None),
+    ("c25_b2048", (2, 1), 2, 25, (17, 30), (136, 240), 2048, "uniform", None),
+    ("odd_w125_live_lanes", (2, 1), 2, 17, None, (67, 125), 1024, "uniform", None),
+    ("all_ignore_image", (2, 1), 2, 17, (17, 30), (136, 240), 1024, "uniform", 17),
+    ("classes_to_ignore", (2, 1), 2, 17, (17, 30), (136, 240), 1024, "uniform", 3),
+    ("adaptive", (2, 1), 2, 17, (34, 60), (272, 480), 1024, "adaptive", None),
+    ("b256", (2, 1), 2, 17, (34, 60), (272, 480), 256, "uniform", None),
+    ("b2048", (2, 1), 2, 17, (34, 60), (272, 480), 2048, "uniform", None),
+]
+
+
+def nchw_inputs(case, dev):
+    """(grids of both scales, padded int32 labels) of one phase-13 case:
+    the v3 route's own `upsample_nchw` of seeded stride-8 logits, or, for
+    raw grids, seeded full-resolution logits with labels also in the pad
+    lanes, where only w_real keeps them from counting."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        pad_labels, upsample_nchw)
+
+    name, _, n, c, s8, (h, w), *_, ignore = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    lbl = blocky_labels(rng, n, h, w, c + 1, 8)
+    if name == "all_ignore_image":
+        lbl[0] = ignore
+    lbl = pad_labels(torch.as_tensor(lbl, device=dev), ignore)
+    h_pad, w_pad = lbl.shape[1:]
+    if s8 is None:
+        grids = [torch.as_tensor(3.0 * rng.standard_normal((n, c, h_pad, w_pad)),
+                                 dtype=torch.float32, device=dev) for _ in range(2)]
+        live = torch.as_tensor(rng.integers(0, c + 1, (n, h, w_pad - w)),
+                               dtype=torch.int32, device=dev)
+        lbl[:, :h, w:] = live
+    else:
+        grids = [upsample_nchw(torch.as_tensor(
+            3.0 * rng.standard_normal((n, c) + s8), dtype=torch.float32,
+            device=dev), (h, w), True, w_pad, h_pad) for _ in range(2)]
+    return grids, lbl
+
+
+def nchw_table(counts, n_scales, n_buckets, edges):
+    """The bf16-rounded table of the loss sum_s w_s * mean over present
+    classes of scale s (w = 0.4, 1.0 for two scales, 1.0 for one)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        counts_to_hist, grad_table, losses_and_tables)
+
+    _, gts, g_fg, g_bg = losses_and_tables(counts_to_hist(counts, n_buckets, edges))
+    present = (gts > 0).float().reshape(n_scales, -1)
+    weights = torch.tensor([[0.4], [1.0]] if n_scales == 2 else [[1.0]],
+                           device=counts.device)
+    ct = (weights * present / present.sum(1, keepdim=True).clamp_min(1.0)).reshape(-1)
+    return grad_table(g_fg, g_bg, ct)
+
+
+def phase13_nchw(dev) -> dict:
+    """B5/B7 and B6/B8 against their plain versions at every NCHW_CASES
+    shape: row totals equal, histogram L1 <= 1e-3 of the counted pairs,
+    the backward's bucket ids reproduce the forward's histogram exactly,
+    its gradient equals the plain arithmetic at those ids within float32
+    rounding (relative L2 1e-5), two runs of each bit-equal; dither under
+    v3 raises; the timings at the flagship (B5/B6) and DeepLabv3 cell
+    (B7/B8) shapes. Returns the four kernels' records by name."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        nchw1_gradient, nchw1_histogram, nchw_gradient, nchw_grad_plain,
+        nchw_histogram, nchw_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_grad import (
+        softmax_vjp_from_fields)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (
+        count_fields)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.nchw_hist import (
+        nchw_fields)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import fused_lovasz
+
+    records = {}
+    for case in NCHW_CASES:
+        name, scales, n, c, s8, (h, w), nb, edges, ignore = case
+        grids, lbl = nchw_inputs(case, dev)
+        lane = torch.arange(lbl.shape[2], device=dev)
+        n_counted = int(((lbl >= 0) & (lane < w)).sum())
+        for n_scales in scales:
+            hist = (nchw1_histogram, nchw_histogram)[n_scales - 1]
+            grad = (nchw1_gradient, nchw_gradient)[n_scales - 1]
+            g = grids[:n_scales]
+            kw = dict(n_buckets=nb, edges=edges, w_real=w)
+            got = hist(g, lbl, **kw)
+            again = hist(g, lbl, **kw)
+            ref = nchw_histogram_plain(g, lbl, **kw)
+            table = nchw_table(got, n_scales, nb, edges)
+            dz, bids = grad.with_bucket_ids(g, lbl, table, **kw)
+            dz_again = grad(g, lbl, table, **kw)
+            dz_ref = nchw_grad_plain(g, lbl, table, **kw)
+            p, fg, keep, pbid = nchw_fields(g, lbl, **kw)
+            kbid = bids.reshape(pbid.shape).long()
+            same_ids = softmax_vjp_from_fields(p, fg, keep, kbid, table)
+            torch.cuda.synchronize()
+            pairs = n_scales * c * n_counted
+            rows_equal = bool(torch.equal(got.sum((1, 2)), ref.sum((1, 2))))
+            diff = (got.long() - ref.long()).abs()
+            l1, max_abs = int(diff.sum()), int(diff.max())
+            hist_repeat = bool(torch.equal(got, again))
+            ids_equal = bool(torch.equal(count_fields(fg, keep, kbid, nb), got))
+            dz_k = torch.stack(dz, dim=1)
+            rel_same = rel_l2(dz_k, same_ids) if same_ids.norm() > 0 else float(dz_k.norm())
+            dz_p = torch.stack(dz_ref, dim=1)
+            rel_plain = rel_l2(dz_k, dz_p) if dz_p.norm() > 0 else float(dz_k.norm())
+            g_max_abs = float((dz_k - dz_p).abs().max())
+            grad_repeat = all(torch.equal(a, b) for a, b in zip(dz, dz_again))
+            dead = float(dz_k.abs().sum(dim=(1, 2))[~keep].sum()) if (~keep).any() else 0.0
+            print(f"{hist.name}/{grad.name} {name}: N={n} C={c} grid={tuple(lbl.shape[1:])} "
+                  f"w_real={w} B={nb} edges={edges} ignore={ignore} pairs={pairs} "
+                  f"row_totals_equal={rows_equal} hist_l1={l1} hist_max_abs={max_abs} "
+                  f"hist_two_runs_bit_equal={hist_repeat} "
+                  f"grad_ids_reproduce_hist={ids_equal} "
+                  f"grad_rel_l2_vs_plain_at_kernel_ids={rel_same!r} "
+                  f"grad_rel_l2_vs_plain={rel_plain!r} grad_max_abs_vs_plain={g_max_abs!r} "
+                  f"grad_two_runs_bit_equal={grad_repeat} "
+                  f"grad_on_uncounted_pixels={dead!r}", flush=True)
+            if not (rows_equal and hist_repeat and l1 <= 1e-3 * max(pairs, 1)):
+                raise AssertionError(f"{hist.name} {name} disagrees with its plain "
+                                     f"version (L1 {l1} of {pairs} pairs)")
+            if not (ids_equal and grad_repeat and rel_same <= 1e-5 and dead == 0.0):
+                raise AssertionError(f"{grad.name} {name} disagrees with its plain "
+                                     "arithmetic or with the forward's buckets")
+            if name in ("flagship", "deeplab_cell"):
+                hist_ms = cuda_ms(lambda: hist(g, lbl, **kw))
+                hist_plain_ms = cuda_ms(lambda: nchw_histogram_plain(g, lbl, **kw), reps=5)
+                grad_ms = cuda_ms(lambda: grad(g, lbl, table, **kw))
+                grad_plain_ms = cuda_ms(lambda: nchw_grad_plain(g, lbl, table, **kw),
+                                        reps=5)
+                # what the function needs of its inputs: the labels of the
+                # lanes below w_real and the logits of the counted pixels;
+                # B6/B8 write every element of their gradient grids
+                read = 4 * pairs + 4 * lbl[:, :, :w].numel()
+                records[hist.name] = _record(
+                    hist, max_abs, hist_ms, hist_plain_ms, read + 4 * got.numel(),
+                    NCHW_HIST_OPS_PER_PAIR * pairs, f"{hist.name} {name}")
+                records[grad.name] = _record(
+                    grad, g_max_abs, grad_ms, grad_plain_ms,
+                    read + 4 * table.numel() + 4 * sum(t.numel() for t in g),
+                    NCHW_GRAD_OPS_PER_PAIR * pairs, f"{grad.name} {name}")
+            del got, again, ref, table, dz, bids, dz_again, dz_ref, p, fg, keep
+            del pbid, kbid, same_ids, dz_k, dz_p
+        del grids, lbl
+
+    # the v3 route refuses dither, as the JAX package's does
+    s8 = torch.zeros((1, 5, 4, 4), device=dev)
+    labels = torch.zeros((1, 32, 32), dtype=torch.int64, device=dev)
+    fused_lovasz._USE_V3 = True
+    try:
+        for call in (lambda: fused_lovasz.fused_bucket_lovasz_s8(s8, labels, dither_seed=1),
+                     lambda: fused_lovasz.fused_two_scale_bucket_lovasz_s8(
+                         s8, s8, labels, 0.4, 1.0, dither_seed=1)):
+            try:
+                call()
+            except ValueError as exc:
+                print(f"dither under v3 raises: {exc}", flush=True)
+            else:
+                raise AssertionError("dither under v3 did not raise")
+    finally:
+        fused_lovasz._USE_V3 = False
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: the DeepLabv3 cell, DeepLabv3+ validation, the v3 route
+# ---------------------------------------------------------------------------
+
+def deeplab_config(graph: dict | None = None) -> dict:
+    """configs/DeepLabv3_rf_lvsz.json (DeepLabv3-R50 os8) with the bucket
+    Lovász, or with another graph."""
+    with open(HR_CONFIG) as f:
+        cfg = json.load(f)
+    return dict(cfg, graph=graph or cfg["graph"], loss=dict(HR_LOSS))
+
+
+def validate_deeplabv3plus(dev) -> None:
+    """One `validate` of DeepLabv3+-R50 os8 at full width: B1 at a stride-4
+    source (136 x 240 -> 544 x 960), one launch per eval-loss batch."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
+
+    cfg = deeplab_config(dict(deeplab_config()["graph"], model="DeepLabv3Plus"))
+    images, labels = synthetic_set()
+    model = build_model(cfg["graph"], 2, device=dev, seed=0)
+    validate(model, cfg, images[:8], labels[:8], device=dev, batch_size=8)   # warm-up
     torch.cuda.synchronize()
     reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    res = train_steps(model, cfg, images, labels, batches, device=dev)
+    t0 = time.perf_counter()
+    res = validate(model, cfg, images, labels, device=dev, batch_size=8)
+    seconds = time.perf_counter() - t0
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    print("HRNetv2 train_steps: " + json.dumps({k: res[k] for k in (
-        "loss", "miou", "pa", "step_losses", "seconds", "frames_per_s")})
-          + f"; {n_full} steps of {bs} frames; peak memory {peak} bytes; "
-          f"kernel launches {launches}; cm total "
-          f"{int(res['confusion_matrix'].sum())}", flush=True)
-    if launches != dict(dict.fromkeys(KERNELS, 0), bucket_hist=n_full,
-                        bucket_grad=n_full):
-        raise AssertionError(f"kernel launches in train_steps {launches}, "
-                             f"expected one B3 and one B4 per step ({n_full})")
-    if not np.isfinite(res["step_losses"]).all():
-        raise AssertionError(f"HRNetv2 train losses {res['step_losses']}")
+    n_full = len(images) // 8
+    cm = res["confusion_matrix"]
+    n_counted = int((pad_reflect_hw(torch.as_tensor(labels)) < 17).sum())
+    print("DeepLabv3+ validate: " + json.dumps({k: res[k] for k in (
+        "valid_loss", "miou", "pa", "pac")}) + f"; {seconds!r} s wall; kernel "
+          f"launches {launches}; cm total {int(cm.sum())} of {n_counted}", flush=True)
+    if launches != dict(dict.fromkeys(KERNELS, 0), fu_hist=n_full):
+        raise AssertionError(f"kernel launches in DeepLabv3+ validate {launches}")
+    if not (np.isfinite(res["valid_loss"]) and int(cm.sum()) == n_counted):
+        raise AssertionError("DeepLabv3+ validate: loss or confusion matrix")
 
-    # the overfit sees one batch under the pad alone, so that each step's
-    # loss is the same function of the weights
-    fit_cfg = dict(cfg, data=dict(cfg["data"], transforms=["pad"]))
-    fit = train_steps(copy.deepcopy(model), fit_cfg, images, labels,
-                      [batches[0]] * 10, device=dev, seed=1)
-    losses = fit["step_losses"]
-    print(f"HRNetv2 overfit, 10 steps on one batch (pad only): losses {losses}",
-          flush=True)
-    if not (np.isfinite(losses).all() and all(np.diff(losses) < 0)):
-        raise AssertionError(f"the HRNetv2 overfit loss does not fall at every "
-                             f"step: {losses}")
 
-    state = res["state"]
+V3_KERNELS = {"DeepLabv3": ("nchw1_hist", "nchw1_grad"),
+              "OCRNet": ("nchw_hist", "nchw_grad")}
+
+
+def run_v3_route(dev, what: str, cfg, n_steps: int = 3) -> dict:
+    """`train_steps` of one cell on the v3 route (`_USE_V3` set around the
+    calls) with the kernels' counts read around it: one launch each of its
+    v3 pair per step and no other; one batch's loss and the gradient of the
+    pre-upsample logits, v3 against v4 (loss within 1e-5, gradient within
+    relative L2 1e-4, the JAX package's own check); the train step's time
+    on each route, in turns. Returns the launch counts."""
+    import copy
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss, fused_lovasz
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_preprocess, eval_spec, make_train_step)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+        train_metrics_source, train_steps)
+
+    task, bs = int(cfg["data"]["experiment"]), 8
+    images, labels = synthetic_set()
+    model = build_model(cfg["graph"], task, device=dev, seed=0)
+    batches = list(np.arange(n_steps * bs).reshape(n_steps, bs))
+    loss_fn = build_loss(cfg["loss"], task, dev)
     step = make_train_step(loss_fn, device_spec(cfg["data"]["transforms"]), task,
                            device=dev, precision=cfg.get("precision", "bf16"),
                            train_metrics=train_metrics_source(cfg))
+    try:
+        fused_lovasz._USE_V3 = True
+        train_steps(copy.deepcopy(model), cfg, images, labels, batches[:1], device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = train_steps(model, cfg, images, labels, batches, device=dev)
+        launches = launch_counts()
+    finally:
+        fused_lovasz._USE_V3 = False
+    hist, grad = V3_KERNELS[what]
+    print(f"{what} v3 train_steps: " + json.dumps({k: res[k] for k in (
+        "loss", "step_losses", "seconds", "frames_per_s")})
+          + f"; {n_steps} steps of {bs} frames; kernel launches {launches}",
+          flush=True)
+    if launches != dict(dict.fromkeys(KERNELS, 0), **{hist: n_steps, grad: n_steps}):
+        raise AssertionError(f"kernel launches in {what}'s v3 train_steps "
+                             f"{launches}, expected one {hist} and one {grad} per step")
+    if not np.isfinite(res["step_losses"]).all():
+        raise AssertionError(f"{what} v3 train losses {res['step_losses']}")
+
+    # one batch: v3 against v4 from the same pre-upsample logits
+    with torch.no_grad():
+        x, lbl = eval_preprocess(torch.as_tensor(images[:bs]).to(dev),
+                                 eval_spec(cfg["data"]["transforms"]),
+                                 torch.as_tensor(labels[:bs]).to(dev))
+        model.eval()
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            out = model(x, full_res=())
+    s8 = {k: v.float() for k, v in out.items() if k.endswith("_s8")}
+    results = {}
+    for v3 in (True, False):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in s8.items()}
+        fused_lovasz._USE_V3 = v3
+        try:
+            total = loss_fn(leaves, lbl)[0]
+            total.backward()
+        finally:
+            fused_lovasz._USE_V3 = False
+        results[v3] = (float(total.detach()), {k: t.grad for k, t in leaves.items()})
+    (l3, g3), (l4, g4) = results[True], results[False]
+    rels = {k: rel_l2(g3[k], g4[k]) for k in g3}
+    print(f"{what} batch 0, v3 against v4: loss {l3!r} vs {l4!r}; gradient "
+          f"relative L2 {json.dumps(rels)}", flush=True)
+    if abs(l3 - l4) > 1e-5 or max(rels.values()) > 1e-4:
+        raise AssertionError(f"{what}: the v3 route disagrees with v4")
+
     imgs, lbls = images[:bs], labels[:bs]
-    step_ms = cuda_ms(lambda: step(state, imgs, lbls, 0), reps=10, warmup=2)
-    print(f"HRNetv2 train step: {step_ms!r} ms (CUDA events, median of 10) = "
-          f"{bs / step_ms * 1e3!r} frames/s", flush=True)
-    if profile:
-        groups = profile_step(lambda: step(state, imgs, lbls, 0), "HRNetv2 train")
-        total = sum(groups.values())
-        print(f"HRNetv2 train step shares: B3 "
-              f"{groups.get('B3 bucket_hist', 0.0) / total!r}, B4 "
-              f"{groups.get('B4 bucket_grad', 0.0) / total!r} of the device "
-              "kernel time", flush=True)
+    state = res["state"]
+
+    def timed(v3):
+        fused_lovasz._USE_V3 = v3
+        try:
+            return cuda_ms(lambda: step(state, imgs, lbls, 0), reps=5, warmup=1)
+        finally:
+            fused_lovasz._USE_V3 = False
+
+    order = (False, True, True, False)
+    times = [timed(v3) for v3 in order]
+    v4_ms = [t for t, v3 in zip(times, order) if not v3]
+    v3_ms = [t for t, v3 in zip(times, order) if v3]
+    print(f"{what} train step, v4 then v3, v3, v4 (CUDA events, median of 5 "
+          f"each): v4 {v4_ms!r} ms, v3 {v3_ms!r} ms", flush=True)
+    # the device time each route's step needs, apart from host gaps
+    for v3 in (False, True):
+        fused_lovasz._USE_V3 = v3
+        try:
+            profile_step(lambda: step(state, imgs, lbls, 0),
+                         f"{what} train ({'v3' if v3 else 'v4'})")
+        finally:
+            fused_lovasz._USE_V3 = False
     return launches
 
 
@@ -1085,24 +1449,52 @@ def main() -> int:
 
     with open(CONFIG) as f:
         cfg = json.load(f)
-    b1 = check_b1(dev)
-    b2 = check_b2(dev)
-    run_slice(dev, cfg)
-    card_vs_cpu(dev, cfg)
-    launches = run_train_slice(dev, cfg)
-    train_card_vs_cpu(dev, cfg)
+    wall = {}
+
+    def phase(n, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        wall[n] = time.perf_counter() - t
+        print(f"phase {n} ({fn.__name__}) took {wall[n]!r} s wall", flush=True)
+        return out
+
+    b1 = phase(3, check_b1, dev)
+    b2 = phase(4, check_b2, dev)
+    phase(5, run_slice, dev, cfg)
+    phase(6, card_vs_cpu, dev, cfg)
+    launches = phase(7, run_train_slice, dev, cfg)
+    phase(8, train_card_vs_cpu, dev, cfg)
     b1["launches"], b2["launches"] = launches["fu_hist"], launches["fu_grad"]
-    b3 = check_b3(dev)
-    b4 = check_b4(dev)
-    hr_launches = run_hrnet_cell(dev, hrnet_config())
-    train_card_vs_cpu(dev, hrnet_config(width=8), "HRNetv2-W8")
+    b3 = phase(9, check_b3, dev)
+    b4 = phase(10, check_b4, dev)
+    hr_launches = phase(11, run_cell, dev, hrnet_config(), "HRNetv2",
+                        {"eval": {"bucket_hist": 1},
+                         "train": {"bucket_hist": 1, "bucket_grad": 1}},
+                        hrnet_batch_check)
+    phase(12, train_card_vs_cpu, dev, hrnet_config(width=8), "HRNetv2-W8")
     b3["launches"] = hr_launches["bucket_hist"]
     b4["launches"] = hr_launches["bucket_grad"]
+    nchw = phase(13, phase13_nchw, dev)
+    dl_launches = phase(14, run_cell, dev, deeplab_config(), "DeepLabv3",
+                        {"eval": {"fu_hist": 1}, "train": {"fu_hist": 1, "fu_grad": 1}},
+                        deeplab_batch_check)
+    phase("14b", validate_deeplabv3plus, dev)
+    v3_launches = phase(15, run_v3_route, dev, "DeepLabv3", deeplab_config())
+    v3_launches.update({k: v for k, v in phase(
+        "15b", run_v3_route, dev, "OCRNet", cfg).items() if k in V3_KERNELS["OCRNet"]})
+    phase(16, train_card_vs_cpu, dev, deeplab_config(), "DeepLabv3")
+    for name, record in nchw.items():
+        record["launches"] = v3_launches[name]
 
-    print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist and B4 bucket_grad: "
-          "ported (CUDA C++, sm_90a); launches counted over train_steps "
-          "(B1/B2: OCRNet, B3/B4: HRNetv2)")
-    print(json.dumps({"kernels": [b1, b2, b3, b4]}))
+    print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
+    print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
+          "B5 nchw_hist, B6 nchw_grad, B7 nchw1_hist and B8 nchw1_grad: ported "
+          "(CUDA C++, sm_90a); launches counted over train_steps (B1/B2: OCRNet "
+          f"{launches['fu_hist']}/{launches['fu_grad']} and DeepLabv3 "
+          f"{dl_launches['fu_hist']}/{dl_launches['fu_grad']}, B3/B4: HRNetv2, "
+          "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route)")
+    print(json.dumps({"kernels": [b1, b2, b3, b4] + [
+        nchw[k] for k in ("nchw_hist", "nchw_grad", "nchw1_hist", "nchw1_grad")]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

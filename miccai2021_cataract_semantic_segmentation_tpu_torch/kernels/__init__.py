@@ -12,9 +12,15 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_grad imp
     fu_grad, fu_grad_plain)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (  # noqa: F401
     fu_histogram, fu_histogram_plain)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.nchw_grad import (  # noqa: F401
+    nchw1_gradient, nchw_grad_plain, nchw_gradient)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.nchw_hist import (  # noqa: F401
+    nchw1_histogram, nchw_histogram, nchw_histogram_plain)
 
+# B1, B2, B3, B4, B5, B6, B7, B8
 KERNELS = {k.name: k for k in (fu_histogram, fu_grad, bucket_histogram,
-                               bucket_gather)}
+                               bucket_gather, nchw_histogram, nchw_gradient,
+                               nchw1_histogram, nchw1_gradient)}
 
 
 def reset_launches() -> None:

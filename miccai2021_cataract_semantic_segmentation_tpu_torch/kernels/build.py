@@ -23,7 +23,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("fu_hist", "fu_grad", "bucket_hist", "bucket_grad")
+SOURCES = ("fu_hist", "fu_grad", "bucket_hist", "bucket_grad", "nchw_hist",
+           "nchw_grad")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,12 +1,13 @@
-// Per-pixel arithmetic shared by B1 (fu_hist.cu) and B2 (fu_grad.cu).
+// Per-pixel arithmetic shared by B1 (fu_hist.cu) and B2 (fu_grad.cu), and
+// by B5/B7 (nchw_hist.cu) and B6/B8 (nchw_grad.cu).
 //
-// The backward kernel must put every counted pixel in the bucket the
-// forward kernel counted it in: the loss's gradient table comes from the
-// forward's counts, so a pixel in another bucket reads another bucket's
-// gradient. Both kernels therefore take the interpolation, the softmax
-// terms, the dither shift and the bucket id from this one header, and are
-// built with -fmad=false, so each multiply and add rounds on its own and
-// the same inputs give the same bits in both.
+// A backward kernel must put every counted pixel in the bucket its forward
+// kernel counted it in: the loss's gradient table comes from the forward's
+// counts, so a pixel in another bucket reads another bucket's gradient.
+// The kernels therefore take the interpolation, the softmax terms, the
+// dither shift and the bucket id from this one header, and are built with
+// -fmad=false, so each multiply and add rounds on its own and the same
+// inputs give the same bits in forward and backward.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,26 +92,15 @@ __device__ __forceinline__ Taps pixel_taps(int y, int x, int hs, int ws,
   return t;
 }
 
-// Upsample the n_cls logit planes at `base` (each hs x ws, `plane` apart)
-// to one output pixel, height weights first and then width weights (the
-// TPU kernel's matmul order), and leave exp(z_c - max z) in z[c] and their
-// sum in `sum`: p_c = __fdiv_rn(z[c], sum).
+// Replace the logits z[0 .. n_cls) by exp(z_c - max z) and leave their sum
+// in `sum`: p_c = __fdiv_rn(z[c], sum). The softmax of every kernel here
+// (B1/B2 after their interpolation, B5-B8 on full-resolution grids).
 template <int MAXC>
-__device__ __forceinline__ void softmax_terms(const float* base, long long plane,
-                                              int ws, int n_cls, const Taps& t,
-                                              float (&z)[MAXC], float& sum) {
+__device__ __forceinline__ void exp_terms(int n_cls, float (&z)[MAXC], float& sum) {
   float m = -INFINITY;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
-    if (c < n_cls) {
-      const float* lc = base + c * plane;
-      const float u0 = __fadd_rn(__fmul_rn(t.a0, __ldg(lc + t.r0 * ws + t.s0)),
-                                 __fmul_rn(t.a1, __ldg(lc + t.r1 * ws + t.s0)));
-      const float u1 = __fadd_rn(__fmul_rn(t.a0, __ldg(lc + t.r0 * ws + t.s1)),
-                                 __fmul_rn(t.a1, __ldg(lc + t.r1 * ws + t.s1)));
-      z[c] = __fadd_rn(__fmul_rn(t.b0, u0), __fmul_rn(t.b1, u1));
-      m = fmaxf(m, z[c]);
-    }
+    if (c < n_cls) m = fmaxf(m, z[c]);
   }
   sum = 0.0f;
 #pragma unroll
@@ -120,6 +110,40 @@ __device__ __forceinline__ void softmax_terms(const float* base, long long plane
       sum = __fadd_rn(sum, z[c]);
     }
   }
+}
+
+// Upsample the n_cls logit planes at `base` (each hs x ws, `plane` apart)
+// to one output pixel, height weights first and then width weights (the
+// TPU kernel's matmul order), then `exp_terms`.
+template <int MAXC>
+__device__ __forceinline__ void softmax_terms(const float* base, long long plane,
+                                              int ws, int n_cls, const Taps& t,
+                                              float (&z)[MAXC], float& sum) {
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c < n_cls) {
+      const float* lc = base + c * plane;
+      const float u0 = __fadd_rn(__fmul_rn(t.a0, __ldg(lc + t.r0 * ws + t.s0)),
+                                 __fmul_rn(t.a1, __ldg(lc + t.r1 * ws + t.s0)));
+      const float u1 = __fadd_rn(__fmul_rn(t.a0, __ldg(lc + t.r0 * ws + t.s1)),
+                                 __fmul_rn(t.a1, __ldg(lc + t.r1 * ws + t.s1)));
+      z[c] = __fadd_rn(__fmul_rn(t.b0, u0), __fmul_rn(t.b1, u1));
+    }
+  }
+  exp_terms<MAXC>(n_cls, z, sum);
+}
+
+// `exp_terms` of one pixel of a full-resolution grid: the n_cls logits at
+// `base`, `plane` apart.
+template <int MAXC>
+__device__ __forceinline__ void grid_softmax_terms(const float* base, long long plane,
+                                                   int n_cls, float (&z)[MAXC],
+                                                   float& sum) {
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c < n_cls) z[c] = __ldg(base + c * plane);
+  }
+  exp_terms<MAXC>(n_cls, z, sum);
 }
 
 }  // namespace fu

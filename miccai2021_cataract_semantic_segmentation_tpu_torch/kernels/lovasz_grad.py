@@ -42,12 +42,12 @@ def fu_grad_plain(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats,
     return grad_from_fields(p, fg, keep, bid, mats, table)
 
 
-def grad_from_fields(p, fg, keep, bid, mats: FuMats,
-                     table: torch.Tensor) -> torch.Tensor:
-    """The table gather, the softmax VJP and the transposed interpolation
-    as two einsums (mw, then mh), from `plain_fields`' p (N, S, C, H, W),
-    fg, keep and bucket ids (any value where keep is False)."""
-    n, n_scales, n_cls, h_pad, w_pad = p.shape
+def softmax_vjp_from_fields(p, fg, keep, bid, table: torch.Tensor) -> torch.Tensor:
+    """dz (N, S, C, H, W): the table gather de = table[row][fg][bid],
+    dp = (fg ? -de : de) on kept pixels and 0 elsewhere, and the softmax
+    VJP p * (dp - sum_c dp * p), from p (N, S, C, H, W), fg (N, C, H, W),
+    keep (N, H, W) and bucket ids (any value where keep is False)."""
+    _, n_scales, n_cls = p.shape[:3]
     n_buckets = table.shape[-1]
     fg5 = fg[:, None]                                        # (N, 1, C, H, W)
     row = torch.arange(n_scales * n_cls, device=p.device).reshape(
@@ -55,8 +55,16 @@ def grad_from_fields(p, fg, keep, bid, mats: FuMats,
     idx = (row * 2 + fg5.long()) * n_buckets + bid.clamp_min(0)
     de = table.reshape(-1)[idx]
     dp = torch.where(fg5, -de, de) * keep[:, None, None]
-    dz = p * (dp - (dp * p).sum(dim=2, keepdim=True))
-    dz = dz.reshape(n, n_scales * n_cls, h_pad, w_pad)
+    return p * (dp - (dp * p).sum(dim=2, keepdim=True))
+
+
+def grad_from_fields(p, fg, keep, bid, mats: FuMats,
+                     table: torch.Tensor) -> torch.Tensor:
+    """`softmax_vjp_from_fields`, then the transposed interpolation as two
+    einsums (mw, then mh), from `plain_fields`' p, fg, keep and ids."""
+    n, n_scales, n_cls, h_pad, w_pad = p.shape
+    dz = softmax_vjp_from_fields(p, fg, keep, bid, table).reshape(
+        n, n_scales * n_cls, h_pad, w_pad)
     d = torch.einsum("nryx,wx->nryw", dz, mats.mw)
     return torch.einsum("yh,nryw->nrhw", mats.mh, d)
 

@@ -135,9 +135,16 @@ def fu_histogram_plain(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats,
     _, fg, keep, bid = plain_fields(ls, labels, mats, n_cls=n_cls,
                                     n_buckets=n_buckets, edges=edges,
                                     seed=seed, dither=dither)
-    r_rows = ls.shape[1]
-    n_scales = r_rows // n_cls
-    row = torch.arange(r_rows, device=ls.device).reshape(1, n_scales, n_cls, 1, 1)
+    return count_fields(fg, keep, bid, n_buckets)
+
+
+def count_fields(fg, keep, bid, n_buckets: int) -> torch.Tensor:
+    """int32 (R, 2, B) counts of the counted (pixel, row) pairs of the
+    fields fg (N, C, H, W), keep (N, H, W) and bucket ids (N, S, C, H, W):
+    an int64 bincount over row*2B + fg*B + bid."""
+    _, n_scales, n_cls = bid.shape[:3]
+    r_rows = n_scales * n_cls
+    row = torch.arange(r_rows, device=bid.device).reshape(1, n_scales, n_cls, 1, 1)
     key = row * (2 * n_buckets) + fg[:, None].long() * n_buckets + bid
     key = key[keep[:, None, None].expand_as(key)]
     counts = torch.bincount(key, minlength=r_rows * 2 * n_buckets)

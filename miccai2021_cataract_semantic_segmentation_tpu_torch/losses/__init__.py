@@ -12,12 +12,16 @@ steps). Routes of the port:
     `lovasz_impl: bucket`: the fused stride-8 route (losses/fused_lovasz.py,
     kernels B1/B2) when the model gives stride-8 logits, else the generic
     bucket route on the full-resolution logits;
-  * TwoScaleLoss with Lovász otherwise, and LovaszSoftmax: the exact sort
-    route (the default `lovasz_impl`) or the generic bucket route
-    (losses/bucket_lovasz.py, kernels B3/B4) on full-resolution logits. On
-    a model with stride-8 logits the single-scale bucket Lovász is the
-    fused route of ROADMAP item 10, which is not ported: it raises rather
-    than compute the generic route's different function.
+  * LovaszSoftmax at `lovasz_impl: bucket` without `per_image`: the fused
+    single-scale route (`fused_bucket_lovasz_s8`, kernels B1/B2, or B7/B8
+    under CADIS_FUSED_V3=1) when the model gives its pre-upsample logits
+    (`logits_s8`, upsampled with align_corners=True, else `logits_s8_acf`,
+    align_corners=False), else the generic bucket route on the
+    full-resolution logits;
+  * TwoScaleLoss with Lovász otherwise, and LovaszSoftmax otherwise: the
+    exact sort route (the default `lovasz_impl`) or the generic bucket
+    route (losses/bucket_lovasz.py, kernels B3/B4) on full-resolution
+    logits.
 Every other loss raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -72,16 +76,33 @@ def _at_label_size(logits, labels):
     return logits
 
 
-def _maybe_fused_single_lovasz(cfg: dict, outputs: dict) -> None:
-    """The single-scale bucket Lovász on a model with stride-8 logits is the
-    fused route, which this port does not have yet: raise there. Return
-    where the route does not apply (the caller takes the generic route)."""
-    if cfg.get("lovasz_impl") != "bucket" or cfg.get("per_image", False):
-        return
-    if outputs.get("logits_s8") is None and outputs.get("logits_s8_acf") is None:
-        return
-    raise _not_ported("the single-scale fused bucket Lovász on stride-8 "
-                      "logits", "item 10")
+def _fusable_single(name: str, cfg: dict) -> bool:
+    """A single-scale loss that takes the fused route on a model with
+    pre-upsample logits (JAX `_maybe_fused_single_lovasz`'s condition)."""
+    return (name == "LovaszSoftmax" and cfg.get("lovasz_impl") == "bucket"
+            and not cfg.get("per_image", False))
+
+
+def _maybe_fused_single_lovasz(cfg: dict, outputs: dict, labels, step=None):
+    """The fused single-scale bucket Lovász on the model's pre-upsample
+    logits: `logits_s8` (align_corners=True), else `logits_s8_acf`
+    (align_corners=False); None where the model gives neither (the caller
+    takes the generic route). The step's counter seeds the dither."""
+    s8, align = outputs.get("logits_s8"), True
+    if s8 is None:
+        s8, align = outputs.get("logits_s8_acf"), False
+    if s8 is None:
+        return None
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        fused_bucket_lovasz_s8)
+    return fused_bucket_lovasz_s8(
+        s8, labels,
+        classes_to_consider=cfg.get("classes_to_consider", "present"),
+        classes_to_ignore=cfg.get("classes_to_ignore"),
+        n_buckets=int(cfg.get("lovasz_buckets", 2048)),
+        align_corners=align,
+        edges=cfg.get("lovasz_edges", "uniform"),
+        dither_seed=_dither_seed_of(cfg, step))
 
 
 def _single_loss(name: str, cfg: dict, task: int):
@@ -91,7 +112,6 @@ def _single_loss(name: str, cfg: dict, task: int):
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
         lovasz_softmax)
     _warn_bucket_dial(cfg)
-    _warn_dither_unused(cfg)
     return lambda lg, lb: lovasz_softmax(
         lg, lb,
         classes_to_consider=cfg.get("classes_to_consider", "present"),
@@ -194,13 +214,18 @@ def build_loss(loss_config: dict, task: int,
         raise _not_ported("the LossWrapper", "item 10")
     if name == "SemiSupervisedLoss":
         raise _not_ported("the SemiSupervisedLoss", "item 11")
+    fusable = _fusable_single(name, cfg)
     single = _single_loss(name, cfg, task)
 
     def single_fn(outputs, labels, epoch=None, step=None):
         check(labels)
-        _maybe_fused_single_lovasz(cfg, outputs)
-        v = single(outputs["logits"], labels)
+        v = _maybe_fused_single_lovasz(cfg, outputs, labels, step) if fusable else None
+        if v is None:
+            _warn_dither_unused(cfg)
+            v = single(outputs["logits"], labels)
         return v, {name: v}
 
-    single_fn.full_res = ("logits",)
+    # a model with pre-upsample logits need not upsample for the fused
+    # route; one without them gives its full-resolution logits anyway
+    single_fn.full_res = () if fusable else ("logits",)
     return single_fn

@@ -4,17 +4,31 @@ from __future__ import annotations
 import torch
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.deeplab import (  # noqa: F401
+    DeepLabv3, DeepLabv3Plus)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import HRNetv2  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import OCRNet  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import ResNetBackbone  # noqa: F401
 
 # graphs of the JAX package that the port does not have yet
 _LATER = {
-    "DeepLabv3": "item 10 (single-scale fused Lovász routing and DeepLabv3)",
-    "DeepLabv3Plus": "item 10 (single-scale fused Lovász routing and DeepLabv3+)",
     "UPerNet": "item 10 (EncDec-UPerNet)",
     "EncDec": "item 10 (EncDec-UPerNet)",
 }
+_PORTED = ("OCRNet", "HRNetv2", "DeepLabv3", "DeepLabv3Plus")
+
+
+def _construct(name: str, graph: dict, task: int) -> torch.nn.Module:
+    if name == "HRNetv2":
+        return HRNetv2(task=task, width=graph.get("width", 32))
+    if name == "OCRNet":
+        return OCRNet(task=task, backbone=graph.get("backbone", "resnet101"),
+                      out_stride=graph.get("out_stride", 8),
+                      dropout=graph.get("dropout", 0.0))
+    cls = DeepLabv3 if name == "DeepLabv3" else DeepLabv3Plus
+    return cls(task=task, backbone=graph.get("backbone", "resnet50"),
+               out_stride=graph.get("out_stride", 16),
+               c_aspp=graph.get("aspp", {}).get("channels", 256))
 
 
 def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
@@ -23,22 +37,16 @@ def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
     from `seed` (the caller's global RNG state is left as it was)."""
     dev = resolve_device(device)
     name = graph.get("model", "OCRNet")
-    if name not in ("OCRNet", "HRNetv2"):
+    if name not in _PORTED:
         item = _LATER.get(name, "item 12 (the remaining graphs)")
         raise NotImplementedError(
             f"graph '{name}' is not ported yet (ROADMAP Queue A {item})")
-    backbone = graph.get("backbone", "resnet101")
-    if name == "OCRNet" and (backbone.startswith("hrnetv2")
-                             or graph.get("projector") is not None):
+    if name != "HRNetv2" and (graph.get("backbone", "").startswith("hrnetv2")
+                              or graph.get("projector") is not None):
         raise NotImplementedError(
-            "OCRNet on HRNet and the projector branch are not ported yet "
+            f"{name} on HRNet and the projector branch are not ported yet "
             "(ROADMAP Queue A item 12)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        if name == "HRNetv2":
-            model = HRNetv2(task=task, width=graph.get("width", 32))
-        else:
-            model = OCRNet(task=task, backbone=backbone,
-                           out_stride=graph.get("out_stride", 8),
-                           dropout=graph.get("dropout", 0.0))
+        model = _construct(name, graph, task)
     return model.to(dev).eval()

@@ -60,9 +60,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def batch_norm(channels: int, momentum: float = BN_MOMENTUM) -> BatchNorm2d:
-    """BatchNorm at torch `momentum` (1 - the flax momentum)."""
-    return BatchNorm2d(channels, eps=BN_EPS, momentum=momentum)
+def batch_norm(channels: int, momentum: float = BN_MOMENTUM,
+               eps: float = BN_EPS) -> BatchNorm2d:
+    """BatchNorm at torch `momentum` (1 - the flax momentum) and `eps`."""
+    return BatchNorm2d(channels, eps=eps, momentum=momentum)
 
 
 class ConvBN(nn.Sequential):
@@ -78,6 +79,12 @@ class ConvBN(nn.Sequential):
                       padding=p, dilation=dilation, bias=bias),
             batch_norm(out_channels, bn_momentum),
             nn.ReLU(inplace=True))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1) -> (N, C, 1, 1), averaged in >= f32 and returned
+    in `x.dtype`, as the JAX package's `global_avg_pool`."""
+    return x.to(acc_dtype(x)).mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
 def upsample_like(x: torch.Tensor, ref_hw: tuple[int, int],

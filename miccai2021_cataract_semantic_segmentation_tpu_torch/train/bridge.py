@@ -1,7 +1,8 @@
-"""flax -> torch weight bridge for OCRNet and HRNetv2.
+"""flax -> torch weight bridge for OCRNet, HRNetv2, DeepLabv3 and DeepLabv3+.
 
 The inverse of the JAX package's train/port_torch.py (`port_ocrnet`,
-`port_resnet_backbone`, `_resnet_flax_path`, `port_hrnet`): it takes a
+`port_resnet_backbone`, `_resnet_flax_path`, `port_hrnet`,
+`port_deeplabv3`, `port_deeplabv3plus`): it takes a
 flax `params` /
 `batch_stats` tree given as nested dicts of numpy arrays and returns the
 port's state dict under the reference's torch names. Conv kernels go HWIO
@@ -93,6 +94,24 @@ def _hrnet_prefix(path: tuple[str, ...]) -> str:
     raise KeyError(f"no torch name for flax module {path}")
 
 
+def _deeplab_prefix(path: tuple[str, ...], plus: bool) -> str:
+    """DeepLabv3(+)'s flax module path -> torch module prefix: the ASPP's
+    bare convolutions beside their `*_bn`, the v3+ decoder's likewise."""
+    head = path[0]
+    if head == "backbone":
+        return "backbone." + _block_prefix(path[1:])
+    if head == "conv_out":
+        return "decoder.conv_out" if plus else "conv_out"
+    if head == "aspp":
+        name, part = path[1], path[2]
+        if name == "proj":
+            return "aspp." + ("conv2" if part == "conv" else "bn2")
+        return f"aspp.{name}" + ("" if part == "conv" else "_bn")
+    if plus and head in ("conv_low", "conv_3x3_1", "conv_3x3_2"):
+        return f"decoder.{head}" + ("" if path[1] == "conv" else "_bn")
+    raise KeyError(f"no torch name for flax module {path}")
+
+
 def _bridge(params, batch_stats, module_prefix) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     bn_modules = []
@@ -118,3 +137,13 @@ def bridge_ocrnet(params, batch_stats) -> dict[str, torch.Tensor]:
 def bridge_hrnet(params, batch_stats) -> dict[str, torch.Tensor]:
     """flax HRNetv2 params/batch_stats -> the port's HRNetv2 state dict."""
     return _bridge(params, batch_stats, _hrnet_prefix)
+
+
+def bridge_deeplabv3(params, batch_stats) -> dict[str, torch.Tensor]:
+    """flax DeepLabv3 params/batch_stats -> the port's state dict."""
+    return _bridge(params, batch_stats, lambda p: _deeplab_prefix(p, False))
+
+
+def bridge_deeplabv3plus(params, batch_stats) -> dict[str, torch.Tensor]:
+    """flax DeepLabv3+ params/batch_stats -> the port's state dict."""
+    return _bridge(params, batch_stats, lambda p: _deeplab_prefix(p, True))

@@ -37,6 +37,9 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
     KERNELS, launch_counts, reset_launches)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import lovasz_softmax
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+    fused_bucket_lovasz_s8)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import BatchNorm2d
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train import lr_schedule as lr
@@ -293,35 +296,46 @@ def test_dither_warns_on_the_routes_that_ignore_it():
     lbl = torch.randint(0, 18, (1, 8, 16))
     two = {"name": "TwoScaleLoss", "interm": {"name": "LovaszSoftmax"},
            "final": {"name": "LovaszSoftmax"}, "lovasz_dither": True}
-    for cfg in ({"name": "LovaszSoftmax", "lovasz_dither": True},
-                {"name": "LovaszSoftmax", "lovasz_impl": "bucket",
-                 "lovasz_dither": True},
-                dict(two, lovasz_impl="sort")):
-        with pytest.warns(UserWarning, match="lovasz_dither does nothing"):
-            build_loss(cfg, 2, "cpu")
-    fused = build_loss(dict(two, lovasz_impl="bucket"), 2, "cpu")
     with pytest.warns(UserWarning, match="lovasz_dither does nothing"):
-        fused({"logits": x, "interm_logits": x}, lbl)
+        build_loss(dict(two, lovasz_impl="sort"), 2, "cpu")
+    fused = build_loss(dict(two, lovasz_impl="bucket"), 2, "cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")          # a single loss warns when it runs
+        sort = build_loss({"name": "LovaszSoftmax", "lovasz_dither": True}, 2, "cpu")
+        single = build_loss(dict(LOSS, lovasz_dither=True), 2, "cpu")
+    for loss, outputs in ((sort, {"logits": x, "logits_s8": x[..., ::8, ::8]}),
+                          (fused, {"logits": x, "interm_logits": x}),
+                          (single, {"logits": x})):
+        with pytest.warns(UserWarning, match="lovasz_dither does nothing"):
+            loss(outputs, lbl)
     s8 = torch.randn(1, 17, 2, 2)
     with warnings.catch_warnings():
-        warnings.simplefilter("error")          # the fused route dithers
+        warnings.simplefilter("error")          # the fused routes dither
         fused({"logits_s8": s8, "interm_logits_s8": s8}, lbl, step=3)
+        single({"logits": x, "logits_s8": s8}, lbl, step=3)
         build_loss(dict(LOSS), 2, "cpu")
 
 
 def test_single_bucket_lovasz_on_stride8_logits_raises():
-    """The single-scale bucket Lovász on a model with stride-8 logits is
-    the fused route of ROADMAP item 10: it raises, and never falls back to
-    the generic route's different function."""
+    """The single-scale bucket Lovász on a model with pre-upsample logits
+    takes the fused route (it raised before that route was ported): from
+    `logits_s8` with align_corners=True, else from `logits_s8_acf` with
+    align_corners=False, never the generic route's different function.
+    The losses of later slices still raise."""
     x = torch.randn(1, 17, 16, 16)
     lbl = torch.randint(0, 18, (1, 16, 16))
+    s8 = x[..., ::8, ::8].contiguous()
     loss = build_loss(LOSS, 2, "cpu")
-    for key in ("logits_s8", "logits_s8_acf"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            loss({"logits": x, key: x[..., ::8, ::8]}, lbl)
-    assert np.isfinite(float(loss({"logits": x}, lbl)[0]))
-    assert np.isfinite(float(build_loss(dict(LOSS, per_image=True), 2, "cpu")(
-        {"logits": x, "logits_s8": x}, lbl)[0]))
+    assert loss.full_res == ()
+    for key, align in (("logits_s8", True), ("logits_s8_acf", False)):
+        got = float(loss({"logits": x, key: s8}, lbl)[0])
+        assert got == float(fused_bucket_lovasz_s8(s8, lbl, align_corners=align))
+    generic = float(loss({"logits": x}, lbl)[0])
+    assert generic == float(lovasz_softmax(x, lbl, impl="bucket"))
+    per_image = build_loss(dict(LOSS, per_image=True), 2, "cpu")
+    assert per_image.full_res == ("logits",)
+    assert float(per_image({"logits": x, "logits_s8": s8}, lbl)[0]) == float(
+        lovasz_softmax(x, lbl, per_image=True, impl="bucket"))
     for name, item in (("CrossEntropyLoss", "item 11"), ("SemiSupervisedLoss", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             build_loss({"name": name}, 2, "cpu")

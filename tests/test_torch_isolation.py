@@ -1,5 +1,6 @@
 """The port stands alone: it imports nothing of JAX, flax, optax or the JAX
-package (its validation and train paths, OCRNet's and HRNetv2's, run with
+package (its validation and train paths, OCRNet's and HRNetv2's, and
+DeepLabv3's forward with both single-scale fused Lovász routes, run with
 them blocked), its entry
 points refuse to run on a missing card unless asked for the CPU, and its
 CPU path launches no kernel."""
@@ -74,10 +75,23 @@ hr = build_model(hr_cfg["graph"], 2, device="cpu")
 hr_res = train_steps(hr, hr_cfg, images, labels, [np.array([0, 1])], device="cpu")
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
 hr_val = validate(hr, hr_cfg, images, labels, device="cpu", batch_size=2)
+import torch
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import fused_lovasz
+dl = build_model({"model": "DeepLabv3", "backbone": "resnet50", "out_stride": 8},
+                 2, device="cpu")
+dl_loss = build_loss({"name": "LovaszSoftmax", "lovasz_impl": "bucket"}, 2, "cpu")
+with torch.no_grad():
+    dl_out = dl(torch.rand(1, 3, 30, 40), full_res=dl_loss.full_res)
+dl_labels = torch.as_tensor(labels[:1])
+dl_v4 = float(dl_loss(dl_out, dl_labels)[0])
+fused_lovasz._USE_V3 = True
+dl_v3 = float(dl_loss(dl_out, dl_labels)[0])
+fused_lovasz._USE_V3 = False
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
                   "train_loss": res["loss"], "hr_train_loss": hr_res["loss"],
                   "hr_valid_loss": hr_val["valid_loss"],
+                  "dl_outputs": sorted(dl_out), "dl_v4": dl_v4, "dl_v3": dl_v3,
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
 """
@@ -92,6 +106,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert np.isfinite(res["loss"]) and res["cm"] > 0
     assert np.isfinite(res["train_loss"])
     assert np.isfinite(res["hr_train_loss"]) and np.isfinite(res["hr_valid_loss"])
+    assert res["dl_outputs"] == ["deep_features", "logits_s8"]
+    assert np.isfinite(res["dl_v4"]) and abs(res["dl_v3"] - res["dl_v4"]) <= 1e-5
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 

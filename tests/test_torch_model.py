@@ -198,7 +198,8 @@ def test_torch_pad_matches():
         assert torch_pad(k, s, d) == jax_torch_pad(k, s, d)
 
 
-@pytest.mark.parametrize("graph", [{"model": "DeepLabv3"}, {"model": "UPerNet"},
+@pytest.mark.parametrize("graph", [{"model": "DeepLabv3", "projector": {"c_out": 8}},
+                                   {"model": "UPerNet"},
                                    {"model": "FCN"},
                                    {"model": "OCRNet", "backbone": "hrnetv2_w18"},
                                    {"model": "OCRNet", "backbone": "resnet18"}])
