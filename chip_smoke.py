@@ -6,15 +6,18 @@
 Phases (any failure raises and the run exits non-zero):
   1. the device, its power limit, the torch/CUDA versions, the TF32 flags;
   2. builds every hand-written kernel from the sources in the checkout;
-  3. kernel B1 (the fused two-scale bucket-Lovász histogram) against its
-     plain PyTorch version on the card, at the flagship shape and at edge
-     shapes, with its time, the plain version's time and its bound;
+  3. kernel B1 (the fused bucket-Lovász histogram) against its plain
+     PyTorch version on the card, at the flagship shape (two scales,
+     align_corners=True), at the UPerNet cell's (one stride-4 scale,
+     136x240 -> 544x960, align_corners=False) and at edge shapes of both
+     conventions (B1_CASES), with its time, the plain version's time and
+     its bound at the first two;
   4. kernel B2 (the fused bucket-Lovász backward) against its plain
-     version at the same shapes, from the bf16-rounded, cotangent-scaled
-     table of a forward on the same inputs: its bucket ids counted must
-     give B1's histogram exactly, its gradient must equal the plain
-     arithmetic at those ids, and two runs must agree bit for bit; with
-     its time, the plain version's time and its bound;
+     version at the same shapes and conventions, from the bf16-rounded,
+     cotangent-scaled table of a forward on the same inputs: its bucket ids
+     counted must give B1's histogram exactly, its gradient must equal the
+     plain arithmetic at those ids, and two runs must agree bit for bit;
+     with its time, the plain version's time and its bound;
   5. the flagship validation (OCRNet-R50 os8, task 2, 540x960 frames padded
      to 544x960, batch 8, two-scale bucket Lovász at B=1024, bf16) through
      `validate` at full width on a seeded synthetic set, with B1's launch
@@ -80,7 +83,26 @@ Phases (any failure raises and the run exits non-zero):
      (one B5 and one B6), one batch's loss and pre-upsample gradient
      against v4, and each step's time on both routes, in turns, with their
      profiles;
- 16. the DeepLabv3 train step on the card against the CPU, as phase 8.
+ 16. the DeepLabv3 train step on the card against the CPU, as phase 8;
+ 17. kernels P1/P2 (the prototype fused upsample of stacked logit rows and
+     its transpose) against float64 evaluations of the same products at
+     P_CASES (the prototype's shape, align_corners=False matrices, C = 17,
+     an odd source and output, one image): relative L2 <= 1e-6, P1 within
+     1e-4 of `upsample_nchw`, P2's two runs bit-equal; their times, the
+     plain versions' and the library calls'; then the prototype
+     counterpart's `main` on the card, whose P1/P2 launches the record
+     reports;
+ 18. the EncDec-UPerNet-R34 cell at full width: configs/UPN_rf_lvsz.json
+     (task 2, 540x960 frames padded to 544x960, batch 8, bf16,
+     pad/flip/blur/colorjitter, Adam at 1e-4, random weights from seed 0)
+     with its LossWrapper sent to the fused route ({"losses":
+     {"LovaszSoftmax": 1}, "lovasz_impl": "bucket"}), as phase 14 runs
+     DeepLabv3: one B1 (R = 17, B 2048, align_corners=False from the
+     stride-4 `logits_s8_acf`) per eval-loss batch and per train step, one
+     B2 per step, none of the others; one batch's loss against B1's plain
+     version, the overfit, the step's time and profile;
+ 19. the UPerNet train step on the card against the CPU, as phase 8, its
+     float32 gradients held as F32_LOSS_GRAD_TOL says.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -103,6 +125,9 @@ CONFIG = os.path.join(ROOT, "configs", "OCRNet_rf_lvsz.json")
 # the HRNetv2 cell: this recipe with its graph and loss replaced
 HR_CONFIG = os.path.join(ROOT, "configs", "DeepLabv3_rf_lvsz.json")
 HR_LOSS = {"name": "LovaszSoftmax", "lovasz_impl": "bucket"}
+# the UPerNet cell: this recipe with its LossWrapper on the fused route
+UPN_CONFIG = os.path.join(ROOT, "configs", "UPN_rf_lvsz.json")
+UPN_LOSS = {"losses": {"LovaszSoftmax": 1}, "lovasz_impl": "bucket"}
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
 # float32 operations B1 does per counted (pixel, class row) pair: 9 for the
@@ -182,22 +207,33 @@ def _record(kernel, max_abs, ms, plain_ms, n_bytes, ops, what: str) -> dict:
 # ---------------------------------------------------------------------------
 
 B1_CASES = [
-    # name, N, C, s8 (hs, ws), out (H, W), B, edges, dither seed, ignore class
-    ("flagship", 8, 17, (68, 120), (544, 960), 1024, "uniform", None, None),
-    ("c5", 2, 5, (17, 30), (136, 240), 1024, "uniform", None, None),
-    ("odd_hw", 2, 17, (9, 16), (67, 125), 1024, "uniform", None, None),
-    ("all_ignore_image", 2, 17, (17, 30), (136, 240), 1024, "uniform", None, 17),
-    ("classes_to_ignore", 2, 17, (17, 30), (136, 240), 1024, "uniform", None, 3),
-    ("adaptive", 2, 17, (34, 60), (272, 480), 1024, "adaptive", None, None),
-    ("dither7", 2, 17, (34, 60), (272, 480), 1024, "uniform", 7, None),
-    ("b256", 2, 17, (34, 60), (272, 480), 256, "uniform", None, None),
-    ("b2048", 2, 17, (34, 60), (272, 480), 2048, "uniform", None, None),
-    ("c25_b2048", 2, 25, (17, 30), (136, 240), 2048, "uniform", None, None),
+    # name, N, C, s8 (hs, ws), out (H, W), B, edges, dither seed, ignore
+    # class, align_corners: True runs both scales (the TwoScaleLoss route),
+    # False one (the LossWrapper's single-scale route from `logits_s8_acf`)
+    ("flagship", 8, 17, (68, 120), (544, 960), 1024, "uniform", None, None, True),
+    ("c5", 2, 5, (17, 30), (136, 240), 1024, "uniform", None, None, True),
+    ("odd_hw", 2, 17, (9, 16), (67, 125), 1024, "uniform", None, None, True),
+    ("all_ignore_image", 2, 17, (17, 30), (136, 240), 1024, "uniform", None, 17, True),
+    ("classes_to_ignore", 2, 17, (17, 30), (136, 240), 1024, "uniform", None, 3, True),
+    ("adaptive", 2, 17, (34, 60), (272, 480), 1024, "adaptive", None, None, True),
+    ("dither7", 2, 17, (34, 60), (272, 480), 1024, "uniform", 7, None, True),
+    ("b256", 2, 17, (34, 60), (272, 480), 256, "uniform", None, None, True),
+    ("b2048", 2, 17, (34, 60), (272, 480), 2048, "uniform", None, None, True),
+    ("c25_b2048", 2, 25, (17, 30), (136, 240), 2048, "uniform", None, None, True),
+    # the UPerNet cell's stride-4 source, and an odd acf edge case
+    ("upernet_acf", 8, 17, (136, 240), (544, 960), 2048, "uniform", None, None, False),
+    ("acf_odd_ignore3", 2, 17, (9, 16), (67, 125), 1024, "uniform", None, 3, False),
 ]
 
 
+def b1_scales(case):
+    """The logits of a B1_CASES row: both scales, or the first alone for an
+    align_corners=False row."""
+    return 2 if case[-1] else 1
+
+
 def b1_inputs(case, dev):
-    name, n, c, (hs, ws), (h, w), *_, ignore = case
+    name, n, c, (hs, ws), (h, w), *_, ignore, _align = case
     rng = np.random.default_rng(sum(map(ord, name)))
     li = torch.as_tensor(3.0 * rng.standard_normal((n, c, hs, ws)),
                          dtype=torch.float32, device=dev)
@@ -209,34 +245,44 @@ def b1_inputs(case, dev):
     return li, lf, torch.as_tensor(lbl, dtype=torch.int64, device=dev)
 
 
+# the rows whose times phases 3-4 print; the flagship's go into the record
+B1_TIMED = ("flagship", "upernet_acf")
+
+
 def check_b1(dev) -> dict:
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (
         fu_histogram, fu_histogram_plain, fu_mats)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
-        fused_two_scale_bucket_lovasz_s8, norm_dither_seed, pad_labels)
+        fused_bucket_lovasz_s8, fused_two_scale_bucket_lovasz_s8, norm_dither_seed,
+        pad_labels)
 
-    flagship = None
+    timed = {}
     for case in B1_CASES:
-        name, n, c, (hs, ws), (h, w), nb, edges, dseed, ignore = case
+        name, n, c, (hs, ws), (h, w), nb, edges, dseed, ignore, align = case
         li, lf, labels = b1_inputs(case, dev)
         lbl = pad_labels(labels, ignore)
-        mats = fu_mats(hs, ws, (h, w), lbl.shape[1], lbl.shape[2], True, dev)
-        ls = torch.cat([li, lf], 1).contiguous()
+        mats = fu_mats(hs, ws, (h, w), lbl.shape[1], lbl.shape[2], align, dev)
+        scales = b1_scales(case)
+        ls = torch.cat([li, lf][:scales], 1).contiguous()
         seed, dither = norm_dither_seed(dseed)
         kw = dict(n_cls=c, n_buckets=nb, edges=edges, seed=seed, dither=dither)
         got = fu_histogram(ls, lbl, mats, **kw)
         ref = fu_histogram_plain(ls, lbl, mats, **kw)
         torch.cuda.synchronize()
-        pairs = 2 * c * int((lbl >= 0).sum())
+        pairs = scales * c * int((lbl >= 0).sum())
         rows_equal = bool((got.sum((1, 2)) == ref.sum((1, 2))).all())
         diff = (got.long() - ref.long()).abs()
         l1, max_abs = int(diff.sum()), int(diff.max())
-        loss_args = (li, lf, labels, 0.4, 1.0, ignore, nb, edges, dseed)
-        loss_k = float(fused_two_scale_bucket_lovasz_s8(
-            *loss_args, histogram=fu_histogram))
-        loss_p = float(fused_two_scale_bucket_lovasz_s8(
-            *loss_args, histogram=fu_histogram_plain))
+        if scales == 2:
+            loss_fn, loss_args = fused_two_scale_bucket_lovasz_s8, (
+                li, lf, labels, 0.4, 1.0, ignore, nb, edges, dseed)
+        else:
+            loss_fn, loss_args = fused_bucket_lovasz_s8, (
+                li, labels, None, ignore, nb, align, edges, dseed)
+        loss_k = float(loss_fn(*loss_args, histogram=fu_histogram))
+        loss_p = float(loss_fn(*loss_args, histogram=fu_histogram_plain))
         print(f"B1 {name}: N={n} C={c} s8={hs}x{ws} out={h}x{w} B={nb} "
+              f"align_corners={align} scales={scales} "
               f"edges={edges} dither={dseed} ignore={ignore} pairs={pairs} "
               f"row_totals_equal={rows_equal} hist_l1={l1} "
               f"hist_max_abs={max_abs} loss_kernel={loss_k!r} "
@@ -248,18 +294,20 @@ def check_b1(dev) -> dict:
                                  f"{pairs} counted pairs")
         if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5):
             raise AssertionError(f"B1 {name}: loss {loss_k} vs plain {loss_p}")
-        if name == "flagship":
-            flagship = dict(ls=ls, lbl=lbl, mats=mats, kw=kw, pairs=pairs,
-                            max_abs=max_abs, out_numel=got.numel())
+        if name in B1_TIMED:
+            timed[name] = dict(ls=ls, lbl=lbl, mats=mats, kw=kw, pairs=pairs,
+                               max_abs=max_abs, out_numel=got.numel())
 
-    f = flagship
-    kernel_ms = cuda_ms(lambda: fu_histogram(f["ls"], f["lbl"], f["mats"],
-                                             **f["kw"]))
-    plain_ms = cuda_ms(lambda: fu_histogram_plain(f["ls"], f["lbl"],
-                                                  f["mats"], **f["kw"]))
-    n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["out_numel"])
-    return _record(fu_histogram, f["max_abs"], kernel_ms, plain_ms, n_bytes,
-                   B1_OPS_PER_PAIR * f["pairs"], "B1 flagship")
+    records = {}
+    for name, f in timed.items():
+        kernel_ms = cuda_ms(lambda: fu_histogram(f["ls"], f["lbl"], f["mats"],
+                                                 **f["kw"]))
+        plain_ms = cuda_ms(lambda: fu_histogram_plain(f["ls"], f["lbl"],
+                                                      f["mats"], **f["kw"]))
+        n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["out_numel"])
+        records[name] = _record(fu_histogram, f["max_abs"], kernel_ms, plain_ms,
+                                n_bytes, B1_OPS_PER_PAIR * f["pairs"], f"B1 {name}")
+    return records["flagship"]
 
 
 # ---------------------------------------------------------------------------
@@ -274,21 +322,25 @@ def check_b2(dev) -> dict:
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
         fu_core_fwd, grad_table, losses_and_tables, norm_dither_seed, pad_labels)
 
-    flagship = None
+    timed = {}
     for case in B1_CASES:
-        name, n, c, (hs, ws), (h, w), nb, edges, dseed, ignore = case
+        name, n, c, (hs, ws), (h, w), nb, edges, dseed, ignore, align = case
         li, lf, labels = b1_inputs(case, dev)
         lbl = pad_labels(labels, ignore)
-        mats = fu_mats(hs, ws, (h, w), lbl.shape[1], lbl.shape[2], True, dev)
-        ls = torch.cat([li, lf], 1).contiguous()
+        mats = fu_mats(hs, ws, (h, w), lbl.shape[1], lbl.shape[2], align, dev)
+        scales = b1_scales(case)
+        parts = [li, lf][:scales]
+        ls = torch.cat(parts, 1).contiguous()
         seed, dither = norm_dither_seed(dseed)
         kw = dict(n_cls=c, n_buckets=nb, edges=edges, seed=seed, dither=dither)
-        # the table of the loss 0.4 * interm + 1.0 * final: per row, the
-        # scale's weight over the number of classes present in it
+        # the table of the loss 0.4 * interm + 1.0 * final (one scale: 1.0
+        # * the loss): per row, the scale's weight over the number of
+        # classes present in it
         _, gts, g_fg, g_bg = losses_and_tables(fu_core_fwd(
-            [li, lf], lbl, c, (h, w), nb, True, edges, seed, dither))
-        present = (gts > 0).float().reshape(2, c)
-        ct = (torch.tensor([[0.4], [1.0]], device=dev) * present
+            parts, lbl, c, (h, w), nb, align, edges, seed, dither))
+        present = (gts > 0).float().reshape(scales, c)
+        weights = torch.tensor([[0.4], [1.0]][2 - scales:], device=dev)
+        ct = (weights * present
               / present.sum(1, keepdim=True).clamp_min(1.0)).reshape(-1)
         table = grad_table(g_fg, g_bg, ct)
         got, bids = fu_grad.with_bucket_ids(ls, lbl, mats, table, **kw)
@@ -301,9 +353,9 @@ def check_b2(dev) -> dict:
         counted = keep[:, None, None].expand_as(pbid)
         pairs = int(counted.sum())
         id_diff = int((counted & (kbid != pbid)).sum())
-        row = torch.arange(2 * c, device=dev).reshape(1, 2, c, 1, 1)
+        row = torch.arange(scales * c, device=dev).reshape(1, scales, c, 1, 1)
         key = (row * 2 + fg[:, None].long()) * nb + kbid
-        b2_hist = torch.bincount(key[counted], minlength=2 * c * 2 * nb)
+        b2_hist = torch.bincount(key[counted], minlength=scales * c * 2 * nb)
         b1_hist = fu_histogram(ls, lbl, mats, **kw)
         hist_equal = bool(torch.equal(b2_hist.int().reshape(b1_hist.shape), b1_hist))
         deterministic = bool(torch.equal(got, again))
@@ -311,6 +363,7 @@ def check_b2(dev) -> dict:
         max_abs = float((got - ref).abs().max())
         rel_same = float((got - same_ids).norm() / same_ids.norm())
         print(f"B2 {name}: N={n} C={c} s8={hs}x{ws} out={h}x{w} B={nb} "
+              f"align_corners={align} scales={scales} "
               f"edges={edges} dither={dseed} ignore={ignore} pairs={pairs} "
               f"rel_l2_vs_plain={rel!r} max_abs_vs_plain={max_abs!r} "
               f"bucket_ids_differing_from_plain={id_diff} "
@@ -328,19 +381,21 @@ def check_b2(dev) -> dict:
         if id_diff > 1e-4 * max(pairs, 1):
             raise AssertionError(f"B2 {name}: {id_diff} bucket ids differ from "
                                  f"the plain version's, > 1e-4 of {pairs}")
-        if name == "flagship":
-            flagship = dict(ls=ls, lbl=lbl, mats=mats, table=table, kw=kw,
-                            pairs=pairs, max_abs=max_abs, out_numel=got.numel())
+        if name in B1_TIMED:
+            timed[name] = dict(ls=ls, lbl=lbl, mats=mats, table=table, kw=kw,
+                               pairs=pairs, max_abs=max_abs, out_numel=got.numel())
 
-    f = flagship
-    args = (f["ls"], f["lbl"], f["mats"], f["table"])
-    kernel_ms = cuda_ms(lambda: fu_grad(*args, **f["kw"]))
-    plain_ms = cuda_ms(lambda: fu_grad_plain(*args, **f["kw"]))
-    n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["table"].numel()
-                   + f["out_numel"])
-    ops = b2_ops(f["pairs"], f["ls"].shape[3], f["lbl"].shape[2])
-    return _record(fu_grad, f["max_abs"], kernel_ms, plain_ms, n_bytes, ops,
-                   "B2 flagship")
+    records = {}
+    for name, f in timed.items():
+        args = (f["ls"], f["lbl"], f["mats"], f["table"])
+        kernel_ms = cuda_ms(lambda: fu_grad(*args, **f["kw"]))
+        plain_ms = cuda_ms(lambda: fu_grad_plain(*args, **f["kw"]))
+        n_bytes = 4 * (f["ls"].numel() + f["lbl"].numel() + f["table"].numel()
+                       + f["out_numel"])
+        ops = b2_ops(f["pairs"], f["ls"].shape[3], f["lbl"].shape[2])
+        records[name] = _record(fu_grad, f["max_abs"], kernel_ms, plain_ms,
+                                n_bytes, ops, f"B2 {name}")
+    return records["flagship"]
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +491,8 @@ def run_slice(dev, cfg) -> None:
 
 # (the kernels' launches inside the profiled steps come after their counts
 # were read)
-_GROUPS = (("B1 fu_hist", ("fu_hist",)),
+_GROUPS = (("P1/P2 fused_upsample", ("fused_upsample",)),
+           ("B1 fu_hist", ("fu_hist",)),
            ("B2 fu_grad", ("fu_grad",)),
            ("B3 bucket_hist", ("bucket_hist",)),
            ("B4 bucket_grad", ("bucket_grad",)),
@@ -651,6 +707,24 @@ F32_GRAD_RATIO = 1.25
 # parameters are not held (a gradient element near zero may then change
 # sign, and Adam's first step moves it by about lr either way)
 MOVED_TOL = 1e-2
+# UPerNet (phase 19) at random weights and batch 2: its parameter
+# gradients are ill-conditioned. Float64 steps on the CPU from weights
+# moved by WEIGHT_NOISE (relative), which moves the loss input two to
+# three times as far as float32 arithmetic does, land 0.5-6.4 % from the
+# unmoved step. The card's float32 gradients landed 0.7 % and 6.1 % from
+# float64, the CPU's 0.5 % and 0.1 % (H100 runs, PERF.md): cuDNN's
+# algorithms meeting that conditioning, since with cuDNN off on the card
+# the 6.1 % fell to 0.24 %, its largest parts encoder layer1/layer2
+# BatchNorm biases. So the card's float32 gradients, with cuDNN and
+# without, must lie no further from float64 than the larger of
+# F32_GRAD_RATIO times the CPU's float32 gradients and the farthest of
+# NOISE_DRAWS such float64 draws; and the gradient of the loss input (B2's
+# output, through the float32 forward) must agree with the CPU's within
+# F32_LOSS_GRAD_TOL, a hundred times what it was with 239 and 283 pairs in
+# another bucket (9.0e-6 and 1.0e-5 in the same runs)
+F32_LOSS_GRAD_TOL = 1e-3
+WEIGHT_NOISE = 1e-6
+NOISE_DRAWS = 3
 
 
 def flat_grads(model) -> torch.Tensor:
@@ -664,14 +738,27 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def one_train_step(dev, cfg, images, labels, dtype) -> dict:
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference over the largest magnitude."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def one_train_step(dev, cfg, images, labels, dtype, noise_seed=None) -> dict:
     """One Lovász train step (pad only, Adam) of the seed-0 model in
-    `dtype` on `dev`: its loss, grad_norm, s8 confusion matrix, gradients
-    and new state dict, on the CPU; with a loss that reads the
-    full-resolution logits, also the bucket ids (R, P) of its rows."""
+    `dtype` on `dev`, its weights first scaled by 1 + WEIGHT_NOISE * a
+    normal draw from `noise_seed` when that is given: its loss, grad_norm,
+    s8 confusion matrix, gradients and new state dict, on the CPU; with a
+    loss that reads the full-resolution logits, also the bucket ids (R, P)
+    of its rows; with one that reads `logits_s8_acf` (the fused
+    single-scale route), those logits (`s4`, float32), their bucket ids
+    (N, 1, C, H_pad, W_pad) and their gradient (`dloss`)."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import bucket_ids
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist import (
+        fu_mats, plain_fields)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import pad_labels
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import lovasz_rows
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
@@ -680,12 +767,29 @@ def one_train_step(dev, cfg, images, labels, dtype) -> dict:
 
     task = int(cfg["data"]["experiment"])
     model = build_model(cfg["graph"], task, device=dev, seed=0).to(dtype)
+    if noise_seed is not None:
+        gen = torch.Generator().manual_seed(noise_seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + WEIGHT_NOISE * torch.randn(p.shape, generator=gen,
+                                                      dtype=p.dtype).to(p.device))
     state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 1))
     loss_fn, seen = build_loss(cfg["loss"], task, dev), {}
 
     def recording_loss(outputs, lbl, **kwargs):
         if "logits" in outputs:
             seen["rows"] = lovasz_rows(outputs["logits"].detach(), lbl)[0]
+        elif "logits_s8_acf" in outputs:
+            s4 = outputs["logits_s8_acf"]
+            s4.register_hook(lambda g: seen.update(dloss=g.detach().double().cpu()))
+            x, lp = s4.detach().float().cpu(), pad_labels(lbl).cpu()
+            mats = fu_mats(x.shape[2], x.shape[3], tuple(lbl.shape[1:]), lp.shape[1],
+                           lp.shape[2], False, torch.device("cpu"))
+            _, _, keep, bid = plain_fields(
+                x, lp, mats, n_cls=x.shape[1],
+                n_buckets=int(cfg["loss"].get("lovasz_buckets", 2048)))
+            seen["fused_bids"] = torch.where(keep[:, None, None], bid, -1)
+            seen["s4"] = x
         return loss_fn(outputs, lbl, **kwargs)
 
     recording_loss.full_res = loss_fn.full_res
@@ -694,11 +798,11 @@ def one_train_step(dev, cfg, images, labels, dtype) -> dict:
                            precision="fp64" if dtype == torch.float64 else "fp32",
                            train_metrics="s8")
     m = step(state, images, labels, 0)
-    bids = bucket_ids(seen["rows"]).cpu() if seen else None
+    bids = bucket_ids(seen["rows"]).cpu() if "rows" in seen else seen.get("fused_bids")
     return dict(loss=float(m["loss"]), norm=float(m["grad_norm"]),
                 cm=m["confusion_matrix"].cpu(), grads=flat_grads(model),
                 sd={k: v.cpu() for k, v in model.state_dict().items()},
-                bids=bids)
+                bids=bids, dloss=seen.get("dloss"), s4=seen.get("s4"))
 
 
 def train_card_vs_cpu(dev, cfg, what: str = "OCRNet") -> None:
@@ -714,7 +818,10 @@ def train_card_vs_cpu(dev, cfg, what: str = "OCRNet") -> None:
     as far from the CPU's float64 gradients as the CPU's float32 ones are;
     loss, BatchNorm statistics and the confusion matrix are held as before.
     A loss on full-resolution logits (the generic bucket route) is held as
-    MOVED_TOL says where pairs moved buckets between the two sides."""
+    MOVED_TOL says where pairs moved buckets between the two sides; one on
+    `logits_s8_acf` (UPerNet) as F32_LOSS_GRAD_TOL says (its gradients
+    also against float64 draws from moved weights, and once more with
+    cuDNN off), with the pairs whose bucket moved counted."""
     lr = float(cfg["train"]["learning_rate"])
     cpu = torch.device("cpu")
     failed = []
@@ -760,10 +867,39 @@ def train_card_vs_cpu(dev, cfg, what: str = "OCRNet") -> None:
                 print(f"{what} train step, float32 gradients against the CPU's float64 "
                       f"(batch seed {seed}): the card's {err_card!r}, the CPU's "
                       f"{err_cpu!r}", flush=True)
-                if (got["loss"] > 1e-5 or got["stats"] > 1e-4
-                        or got["cm_l1"] > 2e-3 * int(host["cm"].sum())
-                        or err_card > max(F32_GRAD_RATIO * err_cpu,
-                                          MOVED_TOL if moved else 0.0)):
+                held = (got["loss"] > 1e-5 or got["stats"] > 1e-4
+                        or got["cm_l1"] > 2e-3 * int(host["cm"].sum()))
+                if card["dloss"] is None:
+                    grads_bad = err_card > max(F32_GRAD_RATIO * err_cpu,
+                                               MOVED_TOL if moved else 0.0)
+                else:
+                    s4_ref = runs["cpu", torch.float64]["s4"]
+                    draws = []
+                    for k in range(1, NOISE_DRAWS + 1):
+                        moved_run = one_train_step(cpu, cfg, images, labels,
+                                                   torch.float64, noise_seed=k)
+                        draws.append((rel_l2(moved_run["grads"], ref),
+                                      max_rel(moved_run["s4"], s4_ref)))
+                    cudnn = torch.backends.cudnn.enabled
+                    torch.backends.cudnn.enabled = False
+                    try:
+                        no_cudnn = one_train_step(dev, cfg, images, labels, dt)
+                    finally:
+                        torch.backends.cudnn.enabled = cudnn
+                    err_no_cudnn = rel_l2(no_cudnn["grads"], ref)
+                    bound = max(F32_GRAD_RATIO * err_cpu, max(g for g, _ in draws))
+                    dloss = rel_l2(card["dloss"], host["dloss"])
+                    print(f"{what} train step, float32 (batch seed {seed}): the card's "
+                          f"loss input {max_rel(card['s4'], s4_ref)!r} (max relative) "
+                          f"from float64's, its gradients {err_card!r}, with cuDNN off "
+                          f"{err_no_cudnn!r}; float64 steps from weights moved by "
+                          f"{WEIGHT_NOISE} (relative) land (gradients, loss input) "
+                          f"{draws!r} from the unmoved one; the gradients' gate "
+                          f"{bound!r}; the loss input's gradient, card against CPU: "
+                          f"relative L2 {dloss!r}", flush=True)
+                    grads_bad = (dloss > F32_LOSS_GRAD_TOL or err_card > bound
+                                 or err_no_cudnn > bound)
+                if held or grads_bad:
                     failed.append(f"float32, batch seed {seed}: {got}, "
                                   f"{err_card} vs {err_cpu} from float64")
     finally:
@@ -939,7 +1075,8 @@ def run_cell(dev, cfg, what: str, expect: dict, batch_check,
              n_frames: int = 29, hw=(540, 960), profile: bool = True) -> dict:
     """`validate` and `train_steps` of one cell with the kernels' counts
     read around each (`expect["eval"]` launches per eval-loss batch,
-    `expect["train"]` per train step, none of any other kernel),
+    `expect["train"]` per train step, none of any other kernel), the
+    eval-loss step's time (outside the counted run),
     `batch_check(model, images, labels, eval_step, spec)` on one full
     batch, a
     10-step overfit of one batch (pad only) whose loss must fall at every
@@ -975,15 +1112,21 @@ def run_cell(dev, cfg, what: str, expect: dict, batch_check,
         return dict(dict.fromkeys(KERNELS, 0), **{k: v * n for k, v in per.items()})
 
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     res = validate(model, cfg, images, labels, device=dev, batch_size=bs)
     torch.cuda.synchronize()
     val_launches = launch_counts()
+    val_peak = torch.cuda.max_memory_allocated()
     cm = res["confusion_matrix"]
     n_counted = int((pad_reflect_hw(torch.as_tensor(labels)) < n_cls).sum())
+    eval_ms = cuda_ms(lambda: eval_step(model, images[:bs], labels[:bs], 0),
+                      reps=10, warmup=1)
     print(f"{what} validate: " + json.dumps({k: res[k] for k in (
         "valid_loss", "miou", "pa", "pac")}) + f"; {n_params} parameters; "
           f"kernel launches {val_launches}; cm total {int(cm.sum())} of "
-          f"{n_counted}", flush=True)
+          f"{n_counted}; peak memory {val_peak} bytes; eval-loss step "
+          f"{eval_ms!r} ms (CUDA events, median of 10) = "
+          f"{bs / eval_ms * 1e3!r} frames/s", flush=True)
     if val_launches != expected(expect["eval"], n_full):
         raise AssertionError(f"kernel launches in validate {val_launches}, "
                              f"expected {expect['eval']} per batch ({n_full})")
@@ -1421,6 +1564,170 @@ def run_v3_route(dev, what: str, cfg, n_steps: int = 3) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: P1/P2 against their plain versions, then the prototype's main
+# ---------------------------------------------------------------------------
+
+P_CASES = [
+    # name, N, C (R = 2C rows), (h, ws), out (H, W), (h_pad, ws_pad, W_pad),
+    # align_corners
+    ("proto", 8, 18, (68, 120), (544, 960), (72, 128, 1024), True),
+    ("acf", 2, 18, (68, 120), (544, 960), (72, 128, 1024), False),
+    ("c17", 2, 17, (68, 120), (544, 960), (72, 128, 1024), True),
+    ("odd", 2, 5, (9, 16), (67, 125), (16, 32, 128), True),
+    ("one_image", 1, 18, (68, 120), (544, 960), (72, 128, 1024), True),
+]
+
+
+def p_inputs(case, dev):
+    """(both scales' logits, ls2d, mhT, mw, d) of one phase-17 case."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.proto_fused_upsample import (
+        prep, upsample_mats)
+
+    name, n, c, (h, ws), out_hw, pads, align = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    li, lf = (torch.as_tensor(rng.standard_normal((n, c, h, ws)),
+                              dtype=torch.float32, device=dev) for _ in range(2))
+    ls2d = prep(li, lf, out_hw, *pads)[0]
+    mhT, mw = upsample_mats(h, ws, out_hw, *pads, align, dev)
+    d = torch.as_tensor(rng.standard_normal((n, 2 * c, out_hw[0], pads[2])),
+                        dtype=torch.float32, device=dev)
+    return (li, lf), ls2d, mhT, mw, d
+
+
+def phase17_fused_upsample(dev) -> dict:
+    """P1 and P2 against float64 evaluations of the same products (relative
+    L2 <= 1e-6), P1 against `upsample_nchw` of both scales (1e-4 abs), P2's
+    two runs bit-equal, at P_CASES; the prototype's shape timed (kernel, its
+    plain version, the library call); then the prototype counterpart's
+    `main` on the card with the launch counts read around it. Returns P1's
+    and P2's records."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.fused_upsample import (
+        fused_downsample, fused_downsample_plain, fused_upsample, fused_upsample_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        upsample_nchw)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import proto_fused_upsample
+
+    records = {}
+    for case in P_CASES:
+        name, n, c, (h, ws), out_hw, (h_pad, ws_pad, w_pad), align = case
+        parts, ls2d, mhT, mw, d = p_inputs(case, dev)
+        mwT = mw.t().contiguous()
+        rows = 2 * c
+        up = fused_upsample(ls2d, mhT, mw, rows)
+        up_again = fused_upsample(ls2d, mhT, mw, rows)
+        up_plain = fused_upsample_plain(ls2d, mhT, mw, rows)
+        up64 = fused_upsample_plain(ls2d.double(), mhT.double(), mw.double(), rows)
+        ref = torch.cat([upsample_nchw(x, out_hw, align, w_pad, out_hw[0])
+                         for x in parts], dim=1)
+        down = fused_downsample(d, mhT, mwT)
+        down_again = fused_downsample(d, mhT, mwT)
+        down_plain = fused_downsample_plain(d, mhT, mwT)
+        down64 = fused_downsample_plain(d.double(), mhT.double(), mwT.double())
+        torch.cuda.synchronize()
+        got = dict(
+            p1_rel_l2_vs_f64=rel_l2(up, up64),
+            p1_max_abs_vs_upsample_nchw=float((up - ref).abs().max()),
+            p1_max_abs_vs_plain=float((up - up_plain).abs().max()),
+            p1_two_runs_bit_equal=bool(torch.equal(up, up_again)),
+            p2_rel_l2_vs_f64=rel_l2(down, down64),
+            p2_max_abs_vs_plain=float((down - down_plain).abs().max()),
+            p2_two_runs_bit_equal=bool(torch.equal(down, down_again)))
+        print(f"P1/P2 {name}: N={n} R={rows} {h}x{ws} -> {out_hw[0]}x{out_hw[1]} "
+              f"pads {h_pad}/{ws_pad}/{w_pad} align_corners={align}: "
+              + json.dumps(got), flush=True)
+        if not (got["p1_rel_l2_vs_f64"] <= 1e-6 and got["p2_rel_l2_vs_f64"] <= 1e-6
+                and got["p1_max_abs_vs_upsample_nchw"] <= 1e-4
+                and got["p2_two_runs_bit_equal"]):
+            raise AssertionError(f"P1/P2 {name}: {got}")
+        if name != "proto":
+            continue
+        # the bound: the contraction without its pads in the cheaper of its
+        # two orders (rows or columns first), and every byte of the inputs
+        # and outputs once
+        big_h, big_w = out_hw
+        ops = 2.0 * n * rows * min(big_h * ws * (h + big_w), h * big_w * (ws + big_h))
+        for kernel, plain, library, args, max_abs, n_bytes, what in (
+                (fused_upsample, fused_upsample_plain,
+                 lambda: [upsample_nchw(x, out_hw, align, w_pad, out_hw[0])
+                          for x in parts], (ls2d, mhT, mw, rows),
+                 got["p1_max_abs_vs_plain"],
+                 4 * (ls2d.numel() + mhT.numel() + mw.numel() + up.numel()),
+                 "P1 proto"),
+                (fused_downsample, fused_downsample_plain,
+                 lambda: torch.einsum("Hh,nrHW,Ww->nrhw", mhT, d, mwT),
+                 (d, mhT, mwT), got["p2_max_abs_vs_plain"],
+                 4 * (d.numel() + mhT.numel() + mwT.numel() + down.numel()),
+                 "P2 proto")):
+            ms = cuda_ms(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            library_ms = cuda_ms(library)
+            rec = _record(kernel, max_abs, ms, plain_ms, n_bytes, ops, what)
+            rec["library_ms"] = library_ms
+            print(f"{what}: library call {library_ms!r} ms (CUDA events, "
+                  f"median of 20)", flush=True)
+            records[kernel.name] = rec
+        del up, up_again, up_plain, up64, ref, down, down_again, down_plain, down64
+
+    reset_launches()
+    res = proto_fused_upsample.main("cuda")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print("prototype counterpart main: " + json.dumps(res)
+          + f"; kernel launches {launches}", flush=True)
+    p_names = ("fused_upsample", "fused_downsample")
+    if (any(launches[k] for k in KERNELS if k not in p_names)
+            or not all(launches[k] for k in p_names)):
+        raise AssertionError(f"kernel launches in the prototype's main {launches}")
+    for k in p_names:
+        records[k]["launches"] = launches[k]
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phases 18-19: the EncDec-UPerNet-R34 cell, and its train step card vs CPU
+# ---------------------------------------------------------------------------
+
+def upernet_config() -> dict:
+    """configs/UPN_rf_lvsz.json as shipped (its EncDec graph from the
+    top-level encoder and decoder) with its LossWrapper sent to the fused
+    route."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import load_config
+
+    return dict(load_config(UPN_CONFIG), loss=dict(UPN_LOSS))
+
+
+def upernet_batch_check(model, images, labels, eval_step, spec) -> None:
+    """One full batch's UPerNet loss: the step's, B1's from the stride-4
+    `logits_s8_acf` at align_corners=False, and B1's plain version's (within
+    1e-5, B1's convention)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        fu_histogram, fu_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
+        fused_bucket_lovasz_s8)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_preprocess)
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        _, _, _, step_loss = eval_step(model, images, labels, 0)
+        x, lbl = eval_preprocess(torch.as_tensor(images).to(dev), spec,
+                                 torch.as_tensor(labels).to(dev))
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            s4 = model(x, full_res=())["logits_s8_acf"]
+        loss_k = float(fused_bucket_lovasz_s8(s4, lbl, align_corners=False,
+                                              histogram=fu_histogram))
+        loss_p = float(fused_bucket_lovasz_s8(s4, lbl, align_corners=False,
+                                              histogram=fu_histogram_plain))
+        del x, lbl, s4
+    print(f"UPerNet batch 0 loss: step {float(step_loss)!r}, kernel {loss_k!r}, "
+          f"plain B1 {loss_p!r}", flush=True)
+    if abs(loss_k - loss_p) > 1e-5 or abs(loss_k - float(step_loss)) > 1e-6:
+        raise AssertionError("UPerNet batch loss: kernel, plain and step disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1485,16 +1792,28 @@ def main() -> int:
     phase(16, train_card_vs_cpu, dev, deeplab_config(), "DeepLabv3")
     for name, record in nchw.items():
         record["launches"] = v3_launches[name]
+    protos = phase(17, phase17_fused_upsample, dev)
+    upn_launches = phase(18, run_cell, dev, upernet_config(), "UPerNet",
+                         {"eval": {"fu_hist": 1}, "train": {"fu_hist": 1, "fu_grad": 1}},
+                         upernet_batch_check)
+    phase(19, train_card_vs_cpu, dev, upernet_config(), "UPerNet")
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
-          "B5 nchw_hist, B6 nchw_grad, B7 nchw1_hist and B8 nchw1_grad: ported "
-          "(CUDA C++, sm_90a); launches counted over train_steps (B1/B2: OCRNet "
-          f"{launches['fu_hist']}/{launches['fu_grad']} and DeepLabv3 "
-          f"{dl_launches['fu_hist']}/{dl_launches['fu_grad']}, B3/B4: HRNetv2, "
-          "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route)")
+          "B5 nchw_hist, B6 nchw_grad, B7 nchw1_hist, B8 nchw1_grad, P1 "
+          "fused_upsample and P2 fused_downsample: ported (CUDA C++, sm_90a); "
+          "launches counted over train_steps (B1/B2: OCRNet "
+          f"{launches['fu_hist']}/{launches['fu_grad']}, DeepLabv3 "
+          f"{dl_launches['fu_hist']}/{dl_launches['fu_grad']} and UPerNet "
+          f"{upn_launches['fu_hist']}/{upn_launches['fu_grad']}, B3/B4: HRNetv2, "
+          "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route) "
+          "and over the prototype counterpart's main (P1/P2: "
+          f"{protos['fused_upsample']['launches']}/"
+          f"{protos['fused_downsample']['launches']}, one each per check and "
+          "per timed call; 0 on every model step of phases 5-18)")
     print(json.dumps({"kernels": [b1, b2, b3, b4] + [
-        nchw[k] for k in ("nchw_hist", "nchw_grad", "nchw1_hist", "nchw1_grad")]}))
+        nchw[k] for k in ("nchw_hist", "nchw_grad", "nchw1_hist", "nchw1_grad")]
+        + [protos["fused_upsample"], protos["fused_downsample"]]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

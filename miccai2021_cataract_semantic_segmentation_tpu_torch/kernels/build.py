@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("fu_hist", "fu_grad", "bucket_hist", "bucket_grad", "nchw_hist",
-           "nchw_grad")
+           "nchw_grad", "fused_upsample")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

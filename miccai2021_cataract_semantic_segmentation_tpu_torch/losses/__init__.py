@@ -21,7 +21,11 @@ steps). Routes of the port:
   * TwoScaleLoss with Lovász otherwise, and LovaszSoftmax otherwise: the
     exact sort route (the default `lovasz_impl`) or the generic bucket
     route (losses/bucket_lovasz.py, kernels B3/B4) on full-resolution
-    logits.
+    logits;
+  * the LossWrapper (`{"losses": {name: weight}}`, the EncDec configs'
+    form): the weighted sum of its TwoScaleLoss and LovaszSoftmax terms,
+    each routed as above with its options from `cfg.get(name, cfg)`, and
+    the Lovász term zeroed while `epoch < dc_off_at_epoch`.
 Every other loss raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -183,6 +187,77 @@ def _interm(interm_logits):
     return interm_logits
 
 
+def _single_term(name: str, cfg: dict, task: int):
+    """fn(outputs, labels, step) of one single-scale loss: the fused route
+    where `cfg` and the outputs allow it, else `name` on the
+    full-resolution logits; with its `full_res`."""
+    fusable = _fusable_single(name, cfg)
+    single = _single_loss(name, cfg, task)
+
+    def fn(outputs, labels, step=None):
+        v = _maybe_fused_single_lovasz(cfg, outputs, labels, step) if fusable else None
+        if v is None:
+            _warn_dither_unused(cfg)
+            v = single(outputs["logits"], labels)
+        return v
+
+    # a model with pre-upsample logits need not upsample for the fused
+    # route; one without them gives its full-resolution logits anyway
+    fn.full_res = () if fusable else ("logits",)
+    return fn
+
+
+def _gated_off_before(v: torch.Tensor, epoch, off_at) -> torch.Tensor:
+    """`v`, or 0 while `epoch < off_at`. Both sides are computed, as the JAX
+    package's `jnp.where` computes them. A tensor `epoch` is compared where
+    it lies; a Python one on the host, its flag then filled on the device
+    (no host-to-device copy, so no sync)."""
+    if isinstance(epoch, torch.Tensor):
+        off = (epoch < off_at).to(v.device)
+    else:
+        off = torch.full((), epoch < off_at, dtype=torch.bool, device=v.device)
+    return torch.where(off, torch.zeros_like(v), v)
+
+
+def _loss_wrapper(cfg: dict, task: int, check):
+    """The LossWrapper (losses/LossWrapper.py of the reference): the sum of
+    weight * term over `cfg["losses"]`; the LovaszSoftmax term is zero
+    while `epoch < dc_off_at_epoch` (ungated when either is None)."""
+    weightings = cfg["losses"]
+    dc_off_at = cfg.get("dc_off_at_epoch")
+    terms = {}
+    for lname in weightings:
+        sub = cfg.get(lname, cfg)
+        if lname == "TwoScaleLoss":
+            terms[lname] = build_two_scale(sub, task)
+        elif lname in ("DenseContrastiveLoss", "DenseContrastiveLossV2"):
+            raise _not_ported(f"loss '{lname}'", "item 11 (the remaining losses)")
+        else:
+            terms[lname] = _single_term(lname, sub, task)
+
+    def wrapper_fn(outputs, labels, epoch=None, step=None):
+        check(labels)
+        total, vals = 0.0, {}
+        for lname, weight in weightings.items():
+            if lname == "TwoScaleLoss":
+                v = terms[lname](outputs.get("interm_logits"), outputs.get("logits"),
+                                 labels,
+                                 interm_s8=outputs.get("interm_logits_s8"),
+                                 final_s8=outputs.get("logits_s8"), step=step)
+            else:
+                v = terms[lname](outputs, labels, step)
+                if lname == "LovaszSoftmax" and dc_off_at is not None \
+                        and epoch is not None:
+                    v = _gated_off_before(v, epoch, dc_off_at)
+            vals[lname] = v * weight
+            total = total + vals[lname]
+        return total, vals
+
+    wrapper_fn.full_res = tuple(dict.fromkeys(
+        k for fn in terms.values() for k in fn.full_res))
+    return wrapper_fn
+
+
 def build_loss(loss_config: dict, task: int,
                device: str | torch.device = "cuda"):
     """Top-level factory keyed by loss_config['name']; returns
@@ -211,21 +286,15 @@ def build_loss(loss_config: dict, task: int,
         two_scale_fn.full_res = ts.full_res
         return two_scale_fn
     if name == "LossWrapper":
-        raise _not_ported("the LossWrapper", "item 10")
+        return _loss_wrapper(cfg, task, check)
     if name == "SemiSupervisedLoss":
         raise _not_ported("the SemiSupervisedLoss", "item 11")
-    fusable = _fusable_single(name, cfg)
-    single = _single_loss(name, cfg, task)
+    term = _single_term(name, cfg, task)
 
     def single_fn(outputs, labels, epoch=None, step=None):
         check(labels)
-        v = _maybe_fused_single_lovasz(cfg, outputs, labels, step) if fusable else None
-        if v is None:
-            _warn_dither_unused(cfg)
-            v = single(outputs["logits"], labels)
+        v = term(outputs, labels, step)
         return v, {name: v}
 
-    # a model with pre-upsample logits need not upsample for the fused
-    # route; one without them gives its full-resolution logits anyway
-    single_fn.full_res = () if fusable else ("logits",)
+    single_fn.full_res = term.full_res
     return single_fn

@@ -6,16 +6,14 @@ import torch
 from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.deeplab import (  # noqa: F401
     DeepLabv3, DeepLabv3Plus)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.encdec import EncDec  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import HRNetv2  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import OCRNet  # noqa: F401
-from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import ResNetBackbone  # noqa: F401
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (  # noqa: F401
+    ResNetBackbone, output_channels)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.upernet import UPerNetDecoder  # noqa: F401
 
-# graphs of the JAX package that the port does not have yet
-_LATER = {
-    "UPerNet": "item 10 (EncDec-UPerNet)",
-    "EncDec": "item 10 (EncDec-UPerNet)",
-}
-_PORTED = ("OCRNet", "HRNetv2", "DeepLabv3", "DeepLabv3Plus")
+_PORTED = ("OCRNet", "HRNetv2", "DeepLabv3", "DeepLabv3Plus", "EncDec", "UPerNet")
 
 
 def _construct(name: str, graph: dict, task: int) -> torch.nn.Module:
@@ -25,6 +23,13 @@ def _construct(name: str, graph: dict, task: int) -> torch.nn.Module:
         return OCRNet(task=task, backbone=graph.get("backbone", "resnet101"),
                       out_stride=graph.get("out_stride", 8),
                       dropout=graph.get("dropout", 0.0))
+    if name == "EncDec":
+        return EncDec(task, graph.get("encoder"), graph.get("decoder"),
+                      graph.get("projector"))
+    if name == "UPerNet":       # shorthand: EncDec with a UPerNet decoder
+        return EncDec(task, graph.get("encoder", {"model": "ResNet50"}),
+                      {"model": "UPerNet", **graph.get("decoder", {})},
+                      graph.get("projector"))
     cls = DeepLabv3 if name == "DeepLabv3" else DeepLabv3Plus
     return cls(task=task, backbone=graph.get("backbone", "resnet50"),
                out_stride=graph.get("out_stride", 16),
@@ -38,9 +43,8 @@ def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
     dev = resolve_device(device)
     name = graph.get("model", "OCRNet")
     if name not in _PORTED:
-        item = _LATER.get(name, "item 12 (the remaining graphs)")
-        raise NotImplementedError(
-            f"graph '{name}' is not ported yet (ROADMAP Queue A {item})")
+        raise NotImplementedError(f"graph '{name}' is not ported yet (ROADMAP "
+                                  "Queue A item 12: the remaining graphs)")
     if name != "HRNetv2" and (graph.get("backbone", "").startswith("hrnetv2")
                               or graph.get("projector") is not None):
         raise NotImplementedError(

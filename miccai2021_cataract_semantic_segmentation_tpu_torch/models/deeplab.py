@@ -28,7 +28,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
     batch_norm, global_avg_pool, to_f32, upsample_like)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
-    OUTPUT_CHANNELS, ResNetBackbone)
+    ResNetBackbone, output_channels)
 
 ASPP_BN_EPS = 3e-4   # the reference's momentum argument lands on eps
 
@@ -99,7 +99,8 @@ class _DeepLab(nn.Module):
     def __init__(self, backbone: str, out_stride: int, c_aspp: int):
         super().__init__()
         self.backbone = ResNetBackbone(backbone, dilate_stages(out_stride))
-        self.aspp = ASPP(OUTPUT_CHANNELS[3], c_aspp, 1 if out_stride >= 16 else 2)
+        self.aspp = ASPP(output_channels(backbone)[3], c_aspp,
+                         1 if out_stride >= 16 else 2)
 
     def forward(self, x: torch.Tensor,
                 full_res: tuple[str, ...] = ("logits",)) -> dict:
@@ -130,7 +131,7 @@ class DeepLabv3Plus(_DeepLab):
     def __init__(self, task: int = 2, backbone: str = "resnet50",
                  out_stride: int = 16, c_aspp: int = 256):
         super().__init__(backbone, out_stride, c_aspp)
-        self.decoder = Decoder(OUTPUT_CHANNELS[0], c_aspp,
+        self.decoder = Decoder(output_channels(backbone)[0], c_aspp,
                                taxonomy.TASK_NUM_CLASSES[task])
 
     def head(self, feats: dict) -> torch.Tensor:

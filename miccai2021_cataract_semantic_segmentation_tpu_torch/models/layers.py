@@ -9,6 +9,7 @@ names, so a published checkpoint loads with `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -90,3 +91,28 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 def upsample_like(x: torch.Tensor, ref_hw: tuple[int, int],
                   align_corners: bool = True) -> torch.Tensor:
     return resize_bilinear(x, ref_hw, align_corners=align_corners)
+
+
+def _pool_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64 averaging matrix of torch's adaptive bins
+    [floor(i n_in / n_out), ceil((i + 1) n_in / n_out)), which overlap
+    where n_out does not divide n_in."""
+    m = np.zeros((n_out, n_in))
+    for i in range(n_out):
+        lo, hi = (i * n_in) // n_out, -(-((i + 1) * n_in) // n_out)
+        m[i, lo:hi] = 1.0 / (hi - lo)
+    return m
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """AdaptiveAvgPool2d(out_hw) of NCHW `x` as two small products over
+    torch's bins (the JAX package's `adaptive_avg_pool`), accumulated in
+    >= f32 and returned in `x.dtype`."""
+    acc = acc_dtype(x)
+    mh = torch.as_tensor(_pool_matrix(x.shape[2], out_hw[0]), dtype=acc,
+                         device=x.device)
+    mw = torch.as_tensor(_pool_matrix(x.shape[3], out_hw[1]), dtype=acc,
+                         device=x.device)
+    with torch.autocast(x.device.type, enabled=False):
+        y = torch.matmul(torch.matmul(mh, x.to(acc)), mw.t())
+    return y.to(x.dtype)

@@ -23,7 +23,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
     ConvBN, acc_dtype, batch_norm, to_f32, upsample_like)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
-    OUTPUT_CHANNELS, ResNetBackbone)
+    ResNetBackbone, output_channels)
 
 
 def spatial_gather(feats: torch.Tensor, probs_logits: torch.Tensor,
@@ -111,8 +111,13 @@ class OCRNet(nn.Module):
                  out_stride: int = 8, dropout: float = 0.0):
         super().__init__()
         num_classes = taxonomy.TASK_NUM_CLASSES[task]
+        if backbone in ("resnet18", "resnet34"):
+            raise NotImplementedError(
+                "OCRNet on ResNet-18/34 (never dilated, its soft object regions "
+                "at half layer 4's size) is not ported yet (ROADMAP Queue A "
+                "item 12)")
         self.backbone = ResNetBackbone(backbone, _ocr_dilate_stages(out_stride))
-        c3, c4 = OUTPUT_CHANNELS[2], OUTPUT_CHANNELS[3]
+        c3, c4 = output_channels(backbone)[2:]
         # Sequential(conv, bn, relu, dropout, cls): the reference keeps
         # torch's default bias on both convs
         self.interm_prediction_head = nn.Sequential(

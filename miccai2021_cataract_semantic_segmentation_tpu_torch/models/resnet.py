@@ -1,14 +1,14 @@
-"""torchvision-compatible dilated ResNet backbones (Bottleneck family) and
-the residual blocks HRNet builds from.
+"""torchvision-compatible dilated ResNet backbones (BasicBlock ResNet-18/34,
+Bottleneck ResNet-50/101) and the residual blocks HRNet builds from.
 
 Port of the JAX package's models/resnet.py with torchvision's module names
 (`conv1`, `bn1`, `layer1.0.conv2`, `layer2.0.downsample.0`, ...), so the
 reference checkpoints load directly. `dilate_stages` is torchvision's
 `replace_stride_with_dilation` for (layer2, layer3, layer4); the first
 block of a dilated layer keeps the previous dilation for its 3x3 conv.
-`BasicBlock` serves HRNet's branches; the BasicBlock backbones
-(ResNet-18/34) come with the other graphs. Both blocks take the torch
-BatchNorm momentum of their graph (`bn_momentum`).
+`BasicBlock` also serves HRNet's branches. Both blocks take the torch
+BatchNorm momentum of their graph (`bn_momentum`). ResNeXt and
+WideResNet come with the remaining backbones.
 """
 from __future__ import annotations
 
@@ -19,14 +19,6 @@ from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
     BN_MOMENTUM, batch_norm)
-
-# name: blocks per stage (Bottleneck, groups 1, base width 64)
-_ARCHS = {
-    "resnet50": (3, 4, 6, 3),
-    "resnet101": (3, 4, 23, 3),
-}
-# output channels of layer1..layer4 for every arch above
-OUTPUT_CHANNELS = (256, 512, 1024, 2048)
 
 
 class BasicBlock(nn.Module):
@@ -82,23 +74,53 @@ class Bottleneck(nn.Module):
         return self.relu(y + identity)
 
 
+# name: (block, blocks per stage), groups 1, base width 64
+_ARCHS = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicBlock, (3, 4, 6, 3)),
+    "resnet50": (Bottleneck, (3, 4, 6, 3)),
+    "resnet101": (Bottleneck, (3, 4, 23, 3)),
+}
+
+# the reference EncDec's encoder names (ResNeXt and WideResNet are not
+# ported: ResNetBackbone raises on their archs)
+ENCODER_ALIASES = {
+    "ResNet18": "resnet18", "ResNet34": "resnet34",
+    "ResNet50": "resnet50", "ResNet101": "resnet101",
+    "ResNeXt50": "resnext50_32x4d", "ResNeXt101": "resnext101_32x8d",
+    "WideResNet50": "wide_resnet50_2", "WideResNet101": "wide_resnet101_2",
+}
+
+
+def _check_arch(arch: str) -> None:
+    if arch not in _ARCHS:
+        raise NotImplementedError(
+            f"backbone '{arch}' is not ported yet (ROADMAP Queue A "
+            "item 12: the remaining graphs and backbones)")
+
+
+def output_channels(arch: str) -> tuple[int, int, int, int]:
+    """Output channels of layer1..layer4 of `arch`."""
+    _check_arch(arch)
+    block = _ARCHS[arch][0]
+    return tuple(p * block.expansion for p in (64, 128, 256, 512))
+
+
 class ResNetBackbone(nn.Module):
     """4-stage feature extractor returning {'layer1'..'layer4'}."""
 
     def __init__(self, arch: str = "resnet50",
                  dilate_stages: Sequence[bool] = (False, False, False)):
         super().__init__()
-        if arch not in _ARCHS:
-            raise NotImplementedError(
-                f"backbone '{arch}' is not ported yet (ROADMAP Queue A "
-                "item 12: the remaining graphs and backbones)")
+        _check_arch(arch)
+        block, layer_sizes = _ARCHS[arch]
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         dilation, in_planes = 1, 64
         for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
-                                                  _ARCHS[arch])):
+                                                  layer_sizes)):
             stride = 1 if li == 0 else 2
             dilated = li > 0 and dilate_stages[li - 1]
             if dilated:
@@ -109,9 +131,9 @@ class ResNetBackbone(nn.Module):
                 s = stride if bi == 0 else 1
                 d = dilation // (2 if (bi == 0 and dilated) else 1)
                 need_ds = bi == 0 and (s != 1 or
-                                       in_planes != planes * Bottleneck.expansion)
-                layer.append(Bottleneck(in_planes, planes, s, max(d, 1), need_ds))
-                in_planes = planes * Bottleneck.expansion
+                                       in_planes != planes * block.expansion)
+                layer.append(block(in_planes, planes, s, max(d, 1), need_ds))
+                in_planes = planes * block.expansion
             self.add_module(f"layer{li + 1}", nn.Sequential(*layer))
         # torchvision's initialisation (kaiming-normal fan-out convs)
         for m in self.modules():

@@ -1,5 +1,6 @@
 """Train and eval steps, the train state, LR schedules, `train_steps`,
-batched validation and the flax -> torch weight bridge."""
+batched validation, run-config reading and the flax -> torch weight
+bridge."""
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import (  # noqa: F401
     build_multiplier_table, make_schedule)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (  # noqa: F401
@@ -8,5 +9,6 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (  #
     EvalSpec, eval_preprocess, eval_spec, make_eval_loss_step, make_eval_step,
     make_train_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps  # noqa: F401
-from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import (  # noqa: F401
-    load_config, validate)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import (  # noqa: F401
+    load_config, with_encdec_graph)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate  # noqa: F401

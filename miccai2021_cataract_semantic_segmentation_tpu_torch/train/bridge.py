@@ -1,8 +1,9 @@
-"""flax -> torch weight bridge for OCRNet, HRNetv2, DeepLabv3 and DeepLabv3+.
+"""flax -> torch weight bridge for OCRNet, HRNetv2, DeepLabv3, DeepLabv3+ and
+EncDec-UPerNet.
 
 The inverse of the JAX package's train/port_torch.py (`port_ocrnet`,
 `port_resnet_backbone`, `_resnet_flax_path`, `port_hrnet`,
-`port_deeplabv3`, `port_deeplabv3plus`): it takes a
+`port_deeplabv3`, `port_deeplabv3plus`, `port_encdec_upernet`): it takes a
 flax `params` /
 `batch_stats` tree given as nested dicts of numpy arrays and returns the
 port's state dict under the reference's torch names. Conv kernels go HWIO
@@ -112,6 +113,27 @@ def _deeplab_prefix(path: tuple[str, ...], plus: bool) -> str:
     raise KeyError(f"no torch name for flax module {path}")
 
 
+def _encdec_upernet_prefix(path: tuple[str, ...]) -> str:
+    """EncDec-UPerNet's flax module path -> torch module prefix (the
+    inverse of `port_encdec_upernet` and its `_upernet_table`)."""
+    head, rest = path[0], path[1:]
+    if head == "encoder":
+        return "enc_model." + _block_prefix(rest)
+    if head != "decoder":
+        raise KeyError(f"no torch name for flax module {path}")
+    if rest == ("cls",):
+        return "dec_model.conv_last.1"
+    hit = re.fullmatch(r"(ppm_conv|fpn_in|fpn_out)_(\d+)", rest[0])
+    if hit:
+        inner = ".0" if hit.group(1) == "fpn_out" else ""   # Sequential(ConvBN)
+        return (f"dec_model.{hit.group(1)}.{hit.group(2)}{inner}."
+                f"{_CONV_BN[rest[1]]}")
+    if rest[0] in ("ppm_last_conv", "conv_last"):
+        inner = ".0" if rest[0] == "conv_last" else ""      # conv_last.0 is a ConvBN
+        return f"dec_model.{rest[0]}{inner}.{_CONV_BN[rest[1]]}"
+    raise KeyError(f"no torch name for flax module {path}")
+
+
 def _bridge(params, batch_stats, module_prefix) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     bn_modules = []
@@ -147,3 +169,9 @@ def bridge_deeplabv3(params, batch_stats) -> dict[str, torch.Tensor]:
 def bridge_deeplabv3plus(params, batch_stats) -> dict[str, torch.Tensor]:
     """flax DeepLabv3+ params/batch_stats -> the port's state dict."""
     return _bridge(params, batch_stats, lambda p: _deeplab_prefix(p, True))
+
+
+def bridge_encdec_upernet(params, batch_stats) -> dict[str, torch.Tensor]:
+    """flax EncDec (ResNet encoder + UPerNet decoder) params/batch_stats ->
+    the port's state dict."""
+    return _bridge(params, batch_stats, _encdec_upernet_prefix)

@@ -9,8 +9,6 @@ checkpoints and the sampler come with the Trainer (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
-import json
-
 import numpy as np
 import torch
 
@@ -19,13 +17,10 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import ev
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
     mean_iou_breakdown, pixel_accuracy)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import (  # noqa: F401
+    load_config)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
     eval_spec, make_eval_loss_step, make_eval_step)
-
-
-def load_config(path) -> dict:
-    with open(path) as f:
-        return json.load(f)
 
 
 def mask_tail_labels(labels: np.ndarray, n_real: int) -> np.ndarray:

@@ -321,7 +321,8 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     takes the fused route (it raised before that route was ported): from
     `logits_s8` with align_corners=True, else from `logits_s8_acf` with
     align_corners=False, never the generic route's different function.
-    The losses of later slices still raise."""
+    The LossWrapper form of the same loss takes the same route; the
+    losses of later slices still raise."""
     x = torch.randn(1, 17, 16, 16)
     lbl = torch.randint(0, 18, (1, 16, 16))
     s8 = x[..., ::8, ::8].contiguous()
@@ -339,8 +340,13 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     for name, item in (("CrossEntropyLoss", "item 11"), ("SemiSupervisedLoss", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             build_loss({"name": name}, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_loss({"losses": {"LovaszSoftmax": 1.0}}, 2, "cpu")
+    wrapper = build_loss({"losses": {"LovaszSoftmax": 1.0}, "lovasz_impl": "bucket"},
+                         2, "cpu")
+    assert wrapper.full_res == ()
+    assert float(wrapper({"logits": x, "logits_s8_acf": s8}, lbl)[0]) == float(
+        fused_bucket_lovasz_s8(s8, lbl, align_corners=False))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_loss({"losses": {"DenseContrastiveLoss": 1.0}}, 2, "cpu")
 
 
 def test_eval_loss_step_asks_for_the_outputs_the_loss_reads():

@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of JAX, flax, optax or the JAX
-package (its validation and train paths, OCRNet's and HRNetv2's, and
-DeepLabv3's forward with both single-scale fused Lovász routes, run with
-them blocked), its entry
+package (its validation and train paths, OCRNet's and HRNetv2's,
+DeepLabv3's forward with both single-scale fused Lovász routes,
+EncDec-UPerNet's validation on the LossWrapper and the prototype fused
+upsample's checks, run with them blocked), its entry
 points refuse to run on a missing card unless asked for the CPU, and its
 CPU path launches no kernel."""
 import ast
@@ -87,11 +88,23 @@ dl_v4 = float(dl_loss(dl_out, dl_labels)[0])
 fused_lovasz._USE_V3 = True
 dl_v3 = float(dl_loss(dl_out, dl_labels)[0])
 fused_lovasz._USE_V3 = False
+upn_cfg = dict(load_config("configs/UPN_rf_lvsz.json"), precision="fp32",
+               loss={"losses": {"LovaszSoftmax": 1}, "lovasz_impl": "bucket"})
+upn = build_model(upn_cfg["graph"], 2, device="cpu")
+# frames whose padded height and width UPerNet's stride 32 divides, as 540x960's
+upn_images = rng.integers(0, 256, (2, 60, 64, 3), dtype=np.uint8)
+upn_labels = rng.integers(0, 18, (2, 60, 64), dtype=np.uint8)
+upn_val = validate(upn, upn_cfg, upn_images, upn_labels, device="cpu", batch_size=2)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import proto_fused_upsample
+proto = proto_fused_upsample.main("cpu", n=1, n_time=0, h=5, ws=6, c=2,
+                                  out_hw=(40, 48), h_pad=8, ws_pad=8, w_pad=128)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
                   "train_loss": res["loss"], "hr_train_loss": hr_res["loss"],
                   "hr_valid_loss": hr_val["valid_loss"],
                   "dl_outputs": sorted(dl_out), "dl_v4": dl_v4, "dl_v3": dl_v3,
+                  "upn_valid_loss": upn_val["valid_loss"],
+                  "proto_errors": [proto["fwd_max_abs_err"], proto["bwd_rel"]],
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
 """
@@ -108,6 +121,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert np.isfinite(res["hr_train_loss"]) and np.isfinite(res["hr_valid_loss"])
     assert res["dl_outputs"] == ["deep_features", "logits_s8"]
     assert np.isfinite(res["dl_v4"]) and abs(res["dl_v3"] - res["dl_v4"]) <= 1e-5
+    assert np.isfinite(res["upn_valid_loss"]) and res["upn_valid_loss"] > 0
+    assert res["proto_errors"][0] < 1e-4 and res["proto_errors"][1] < 1e-5
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 

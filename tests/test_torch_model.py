@@ -199,7 +199,7 @@ def test_torch_pad_matches():
 
 
 @pytest.mark.parametrize("graph", [{"model": "DeepLabv3", "projector": {"c_out": 8}},
-                                   {"model": "UPerNet"},
+                                   {"model": "PointRend"},
                                    {"model": "FCN"},
                                    {"model": "OCRNet", "backbone": "hrnetv2_w18"},
                                    {"model": "OCRNet", "backbone": "resnet18"}])
