@@ -87,11 +87,14 @@ Phases (any failure raises and the run exits non-zero):
  17. kernels P1/P2 (the prototype fused upsample of stacked logit rows and
      its transpose) against float64 evaluations of the same products at
      P_CASES (the prototype's shape, align_corners=False matrices, C = 17,
-     an odd source and output, one image): relative L2 <= 1e-6, P1 within
-     1e-4 of `upsample_nchw`, P2's two runs bit-equal; their times, the
-     plain versions' and the library calls'; then the prototype
-     counterpart's `main` on the card, whose P1/P2 launches the record
-     reports;
+     an odd source and output, one image, a ragged case with no size a
+     multiple of a tile and rows not 16-byte aligned): relative L2 <= 1e-6,
+     P1 within 1e-4 of `upsample_nchw`, P2's two runs bit-equal (P1's
+     recorded); their times, the plain versions', the library calls', the
+     GFLOP their tiles issue, and a bound that counts the contraction
+     three times at the dense TF32 rate (3xTF32) beside the float32 one;
+     then the prototype counterpart's `main` on the card, whose P1/P2
+     launches the record reports;
  18. the EncDec-UPerNet-R34 cell at full width: configs/UPN_rf_lvsz.json
      (task 2, 540x960 frames padded to 544x960, batch 8, bf16,
      pad/flip/blur/colorjitter, Adam at 1e-4, random weights from seed 0)
@@ -130,6 +133,7 @@ UPN_CONFIG = os.path.join(ROOT, "configs", "UPN_rf_lvsz.json")
 UPN_LOSS = {"losses": {"LovaszSoftmax": 1}, "lovasz_impl": "bucket"}
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_TF32_OPS_S = 495e12    # H100 SXM dense TF32 on the tensor cores
 # float32 operations B1 does per counted (pixel, class row) pair: 9 for the
 # 2x2 interpolation, 5 for the softmax (max, subtract, exp, sum, divide), 2
 # for e = |fg - p|; the bucket id and the count are integer work
@@ -185,15 +189,17 @@ def blocky_labels(rng, n, h, w, n_values, block):
     return np.repeat(np.repeat(grid, block, 1), block, 2)[:, :h, :w]
 
 
-def _record(kernel, max_abs, ms, plain_ms, n_bytes, ops, what: str) -> dict:
+def _record(kernel, max_abs, ms, plain_ms, n_bytes, ops, what: str,
+            peak_ops_s: float = PEAK_F32_OPS_S, ops_unit: str = "f32") -> dict:
     """A kernel's line of the `kernels` record (launches filled in later),
-    with its bound from the bytes and operations of the timed inputs;
-    prints the timing."""
+    with its bound from the bytes and operations of the timed inputs (at
+    `peak_ops_s`, float32 outside the tensor cores unless given); prints
+    the timing."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    t_ops = ops / peak_ops_s * 1e3
     print(f"{what} timing: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
           f"events, median of 20; plain of 5 from B3 on); bound: {n_bytes} "
-          f"bytes -> {t_bytes!r} ms, {ops!r} f32 ops -> {t_ops!r} ms",
+          f"bytes -> {t_bytes!r} ms, {ops!r} {ops_unit} ops -> {t_ops!r} ms",
           flush=True)
     return {"name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": None, "max_abs_err": max_abs,
@@ -1576,6 +1582,8 @@ P_CASES = [
     ("c17", 2, 17, (68, 120), (544, 960), (72, 128, 1024), True),
     ("odd", 2, 5, (9, 16), (67, 125), (16, 32, 128), True),
     ("one_image", 1, 18, (68, 120), (544, 960), (72, 128, 1024), True),
+    # no size a multiple of a tile, rows not 16-byte aligned
+    ("ragged", 1, 3, (11, 13), (83, 101), (13, 13, 101), False),
 ]
 
 
@@ -1646,7 +1654,10 @@ def phase17_fused_upsample(dev) -> dict:
             continue
         # the bound: the contraction without its pads in the cheaper of its
         # two orders (rows or columns first), and every byte of the inputs
-        # and outputs once
+        # and outputs once; the kernels do the operations as three TF32
+        # products on the tensor cores, so the bound counts them three times
+        # at the dense TF32 rate (the bound at the float32 rate outside the
+        # tensor cores, which earlier records used, is printed beside it)
         big_h, big_w = out_hw
         ops = 2.0 * n * rows * min(big_h * ws * (h + big_w), h * big_w * (ws + big_h))
         for kernel, plain, library, args, max_abs, n_bytes, what in (
@@ -1664,10 +1675,17 @@ def phase17_fused_upsample(dev) -> dict:
             ms = cuda_ms(lambda: kernel(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
             library_ms = cuda_ms(library)
-            rec = _record(kernel, max_abs, ms, plain_ms, n_bytes, ops, what)
+            rec = _record(kernel, max_abs, ms, plain_ms, n_bytes, 3 * ops, what,
+                          PEAK_TF32_OPS_S, "TF32 (3 x the contraction's)")
             rec["library_ms"] = library_ms
+            simt_ms = max(n_bytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S) * 1e3
+            issued = kernel.issued_flops(*args)
             print(f"{what}: library call {library_ms!r} ms (CUDA events, "
-                  f"median of 20)", flush=True)
+                  f"median of 20); float32-SIMT bound {simt_ms!r} ms; the "
+                  f"tiles issue {issued / 1e9!r} GFLOP (float32 work, "
+                  f"{ops / 1e9!r} without pads); kernel/bound "
+                  f"{ms / rec['bound_ms']!r}, kernel/library "
+                  f"{ms / library_ms!r}", flush=True)
             records[kernel.name] = rec
         del up, up_again, up_plain, up64, ref, down, down_again, down_plain, down64
 

@@ -17,11 +17,12 @@ float32 (N, R, h_pad, ws_pad). The matrices are inputs, so either
 align_corners convention and any padding go through.
 
 `fused_upsample` and `fused_downsample` run the CUDA kernels
-(csrc/fused_upsample.cu: two launches of one batched matrix product each)
-for CUDA tensors and the plain versions (two `torch.einsum`s in the
-input's dtype) for CPU tensors; there is no fallback from one to the
-other. Each wrapper's `launches` counts its calls that launched the
-kernels.
+(csrc/fused_upsample.cu: two launches each of one batched matrix product
+on the tensor cores, float32 by three TF32 products) for CUDA tensors and
+the plain versions (two `torch.einsum`s in the input's dtype) for CPU
+tensors; there is no fallback from one to the other. Each wrapper's
+`launches` counts its calls that launched the kernels, and its
+`issued_flops` gives the float32 operations its tiles issue at a shape.
 """
 from __future__ import annotations
 
@@ -81,6 +82,17 @@ class _Wrapper:
             fn.restype = ctypes.c_int
         return lib
 
+    def issued_flops(self, *args) -> float:
+        """The operations (two per multiply-add, pads and partial tiles
+        included) that the kernels' tiles issue for these arguments, as
+        float32 work; the tensor cores do it three times in TF32."""
+        lib = self._lib(self._entry)
+        fn = lib.fused_upsample_issued_flops
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_int] * 7
+            fn.restype = ctypes.c_double
+        return fn(self._bwd, *self._dims(*args))
+
     def _run(self, fn_name: str, ptrs, dims, device) -> None:
         lib = self._lib(fn_name)
         err = getattr(lib, fn_name)(*map(_ptr, ptrs), *dims, device.index,
@@ -97,14 +109,16 @@ class FusedUpsample(_Wrapper):
 
     name = "fused_upsample"
     replaces = "tools/proto_fused_upsample.py:47"
+    _entry, _bwd = "fused_upsample_fwd", 0
 
     def __call__(self, ls2d, mhT, mw, n_rows: int):
         if ls2d.device.type == "cpu":
             return fused_upsample_plain(ls2d, mhT, mw, n_rows)
         return self._launch(ls2d, mhT, mw, n_rows)
 
-    def _launch(self, ls2d, mhT, mw, n_rows):
-        _check({"ls2d": ls2d, "mhT": mhT, "mw": mw}, ls2d.device)
+    @staticmethod
+    def _dims(ls2d, mhT, mw, n_rows):
+        """(n, rows, H, h_pad, ws_pad, W_pad) of the C entry points."""
         n, h_pad, lanes = ls2d.shape
         h_out = mhT.shape[0]
         ws_pad, w_pad = mw.shape
@@ -112,12 +126,16 @@ class FusedUpsample(_Wrapper):
             raise ValueError(f"shapes ls2d {tuple(ls2d.shape)}, mhT "
                              f"{tuple(mhT.shape)}, mw {tuple(mw.shape)} do not "
                              f"match {n_rows} rows")
+        return n, n_rows, h_out, h_pad, ws_pad, w_pad
+
+    def _launch(self, ls2d, mhT, mw, n_rows):
+        _check({"ls2d": ls2d, "mhT": mhT, "mw": mw}, ls2d.device)
+        dims = n, _, h_out, h_pad, _, w_pad = self._dims(ls2d, mhT, mw, n_rows)
         v = torch.empty((n, h_pad, n_rows, w_pad), dtype=torch.float32,
                         device=ls2d.device)
         out = torch.empty((n, n_rows, h_out, w_pad), dtype=torch.float32,
                           device=ls2d.device)
-        self._run("fused_upsample_fwd", (ls2d, mhT, mw, v, out),
-                  (n, n_rows, h_out, h_pad, ws_pad, w_pad), ls2d.device)
+        self._run(self._entry, (ls2d, mhT, mw, v, out), dims, ls2d.device)
         return out
 
 
@@ -127,26 +145,32 @@ class FusedDownsample(_Wrapper):
 
     name = "fused_downsample"
     replaces = "tools/proto_fused_upsample.py:92"
+    _entry, _bwd = "fused_downsample_bwd", 1
 
     def __call__(self, d, mhT, mwT):
         if d.device.type == "cpu":
             return fused_downsample_plain(d, mhT, mwT)
         return self._launch(d, mhT, mwT)
 
-    def _launch(self, d, mhT, mwT):
-        _check({"d": d, "mhT": mhT, "mwT": mwT}, d.device)
+    @staticmethod
+    def _dims(d, mhT, mwT):
+        """(n, rows, H, h_pad, ws_pad, W_pad) of the C entry points."""
         n, n_rows, h_out, w_pad = d.shape
         h_pad = mhT.shape[1]
         ws_pad = mwT.shape[1]
         if mhT.shape[0] != h_out or mwT.shape[0] != w_pad:
             raise ValueError(f"shapes d {tuple(d.shape)}, mhT {tuple(mhT.shape)}, "
                              f"mwT {tuple(mwT.shape)} do not match")
+        return n, n_rows, h_out, h_pad, ws_pad, w_pad
+
+    def _launch(self, d, mhT, mwT):
+        _check({"d": d, "mhT": mhT, "mwT": mwT}, d.device)
+        dims = n, n_rows, _, h_pad, ws_pad, w_pad = self._dims(d, mhT, mwT)
         dh = torch.empty((n, n_rows, h_pad, w_pad), dtype=torch.float32,
                          device=d.device)
         out = torch.empty((n, n_rows, h_pad, ws_pad), dtype=torch.float32,
                           device=d.device)
-        self._run("fused_downsample_bwd", (d, mhT, mwT, dh, out),
-                  (n, n_rows, h_out, h_pad, ws_pad, w_pad), d.device)
+        self._run(self._entry, (d, mhT, mwT, dh, out), dims, d.device)
         return out
 
 

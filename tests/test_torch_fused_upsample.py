@@ -1,5 +1,6 @@
 """P1/P2 (the prototype fused upsample and its transpose) against the
-prototype's own TPU kernels, and the port's counterpart of the prototype.
+prototype's own TPU kernels, the port's counterpart of the prototype, and
+the kernels' 3xTF32 arithmetic emulated in numpy.
 
 The prototype tools/proto_fused_upsample.py launches its Pallas kernels
 `_fwd_kernel` and `_bwd_kernel` through wrappers that cannot run on the
@@ -34,7 +35,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.fused_upsample 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
     upsample_nchw)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import (
-    proto_fused_upsample as port_proto)
+    fused_upsample_ablation, proto_fused_upsample as port_proto)
 
 # n, (h, ws, C) -> out (H, W); pads h_pad, ws_pad, W_pad; block height bh
 SMALL = dict(n=1, h=9, ws=15, c=3, out_hw=(64, 112), h_pad=16, ws_pad=16,
@@ -221,3 +222,91 @@ def test_prototype_counterpart_main_runs_on_the_cpu_when_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_proto.main()
+
+
+# --- the kernels' arithmetic: 3xTF32 against one TF32 product -------------
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """float32 x rounded to TF32: to nearest, ties away from zero, on the 13
+    low mantissa bits of its bit pattern (as `cvt.rna.tf32.f32`)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_matmul(a: np.ndarray, b: np.ndarray, three: bool) -> np.ndarray:
+    """float32 a @ b as the kernels sum it: every 8-deep step adds to a
+    float32 accumulator small*big, big*small and big*big of the operands'
+    TF32 parts (`three`), or big*big alone, each step's product exact."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    terms = ((a_small, b_big), (a_big, b_small), (a_big, b_big)) if three else (
+        (a_big, b_big),)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in terms:
+            step = x[:, k0:k0 + 8].astype(np.float64) @ y[k0:k0 + 8].astype(np.float64)
+            acc += step.astype(np.float32)
+    return acc
+
+
+def test_tf32_rounds_to_nearest_ties_away_and_splits_exactly():
+    one = np.float32(1.0)
+    half_ulp = np.float32(2.0 ** -11)          # halfway between two TF32 values
+    got = tf32(np.array([one + half_ulp, -(one + half_ulp), one + half_ulp / 2,
+                         np.float32(3.0)], np.float32))
+    np.testing.assert_array_equal(got, [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0])
+    x = np.random.default_rng(5).standard_normal(1000).astype(np.float32)
+    big = tf32(x)
+    assert np.all(big.view(np.uint32) & np.uint32(0x1FFF) == 0)
+    np.testing.assert_array_equal(big.astype(np.float64) + (x - big).astype(np.float64),
+                                  x.astype(np.float64))
+
+
+PROTO_PLANE = dict(h=68, ws=120, out_hw=(544, 960), h_pad=72, ws_pad=128, w_pad=1024)
+
+
+@pytest.mark.parametrize("align", [True, False], ids=["align", "acf"])
+@pytest.mark.parametrize("kernel", ["p1", "p2"])
+def test_three_tf32_products_meet_the_gate_where_one_does_not(kernel, align):
+    """One plane at the prototype's shape through both passes as the CUDA
+    kernels order and sum them (P1 columns then rows, P2 rows then columns,
+    P2's row pass as the transposed product d^T @ mhT): 3xTF32 lies within
+    phase 17's 1e-6 relative L2 of float64, one TF32 product does not
+    (above 1e-5): the reason for the split."""
+    s = PROTO_PLANE
+    mhT, mw = (m.numpy() for m in port_proto.upsample_mats(
+        s["h"], s["ws"], s["out_hw"], s["h_pad"], s["ws_pad"], s["w_pad"], align))
+    rng = np.random.default_rng(11)
+    if kernel == "p1":
+        x = np.zeros((s["h_pad"], s["ws_pad"]), np.float32)
+        x[:s["h"], :s["ws"]] = rng.standard_normal((s["h"], s["ws"]))
+        ref = mhT.astype(np.float64) @ x.astype(np.float64) @ mw.astype(np.float64)
+    else:
+        x = rng.standard_normal((s["out_hw"][0], s["w_pad"])).astype(np.float32)
+        mwT = np.ascontiguousarray(mw.T)
+        ref = mhT.T.astype(np.float64) @ x.astype(np.float64) @ mwT.astype(np.float64)
+    rel = {}
+    for three in (True, False):
+        if kernel == "p1":
+            got = tf32_matmul(mhT, tf32_matmul(x, mw, three), three)
+        else:
+            dh = tf32_matmul(np.ascontiguousarray(x.T), mhT, three).T
+            got = tf32_matmul(np.ascontiguousarray(dh), mwT, three)
+        rel[three] = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel[True] <= 1e-6, rel
+    assert rel[False] > 1e-5, rel
+
+
+def test_ablation_edits_match_the_committed_kernel_source():
+    """tools/fused_upsample_ablation.py edits the committed source: each of
+    its edits still finds its text there, and only `full` is unedited; it
+    refuses to run without the card."""
+    src = (fused_upsample_ablation.build.CSRC / "fused_upsample.cu").read_text()
+    variants = fused_upsample_ablation.sources()
+    assert variants["full"] == src
+    assert len(set(variants.values())) == len(variants)
+    assert [v.count("mma(acc") for v in variants.values()] == [3, 3, 3, 1, 0]
+    assert "cvt.rna.tf32.f32 %0" in variants["cvt_split"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fused_upsample_ablation.main()
