@@ -9,9 +9,13 @@ Phases (any failure raises and the run exits non-zero):
   3. kernel B1 (the fused bucket-Lovász histogram) against its plain
      PyTorch version on the card, at the flagship shape (two scales,
      align_corners=True), at the UPerNet cell's (one stride-4 scale,
-     136x240 -> 544x960, align_corners=False) and at edge shapes of both
-     conventions (B1_CASES), with its time, the plain version's time and
-     its bound at the first two;
+     136x240 -> 544x960, align_corners=False), at edge shapes of both
+     conventions and at the flagship's shape with peaked logits, as from a
+     net that has learnt (B1_CASES): per-row totals equal, histogram L1
+     <= 1e-4 of the counted pairs, loss within 1e-5, two runs bit-equal;
+     with the share of counted pairs in the two hottest bins of each half,
+     its time, the plain version's time and its bound at the flagship,
+     UPerNet and peaked rows (B1_TIMED);
   4. kernel B2 (the fused bucket-Lovász backward) against its plain
      version at the same shapes and conventions, from the bf16-rounded,
      cotangent-scaled table of a forward on the same inputs: its bucket ids
@@ -226,9 +230,14 @@ B1_CASES = [
     ("b256", 2, 17, (34, 60), (272, 480), 256, "uniform", None, None, True),
     ("b2048", 2, 17, (34, 60), (272, 480), 2048, "uniform", None, None, True),
     ("c25_b2048", 2, 25, (17, 30), (136, 240), 2048, "uniform", None, None, True),
+    # B1's rows shared by a cluster of two blocks (C > 28 at B 2048)
+    ("c32_b2048", 2, 32, (17, 30), (136, 240), 2048, "uniform", None, None, True),
     # the UPerNet cell's stride-4 source, and an odd acf edge case
     ("upernet_acf", 8, 17, (136, 240), (544, 960), 2048, "uniform", None, None, False),
     ("acf_odd_ignore3", 2, 17, (9, 16), (67, 125), 1024, "uniform", None, 3, False),
+    # the flagship's shape with the logits of a net that has learnt (see
+    # b1_inputs): most pairs land in bucket 0 of their half
+    ("peaked", 8, 17, (68, 120), (544, 960), 1024, "uniform", None, None, True),
 ]
 
 
@@ -248,11 +257,28 @@ def b1_inputs(case, dev):
     lbl = blocky_labels(rng, n, h, w, c + 1, 8)
     if name == "all_ignore_image":
         lbl[0] = ignore
+    if name == "peaked":
+        # std 3 plus 15 on the class of the label under each s8 cell (the
+        # label at (8i, 8j)); a label of C raises no class
+        under = torch.as_tensor(lbl[:, ::8, ::8][:, :hs, :ws], device=dev)
+        raise_ = 15.0 * (under[:, None] == torch.arange(c, device=dev)[:, None, None])
+        li, lf = li + raise_, lf + raise_
     return li, lf, torch.as_tensor(lbl, dtype=torch.int64, device=dev)
 
 
 # the rows whose times phases 3-4 print; the flagship's go into the record
-B1_TIMED = ("flagship", "upernet_acf")
+B1_TIMED = ("flagship", "upernet_acf", "peaked")
+
+
+def hot_bin_shares(counts: torch.Tensor) -> dict:
+    """The share of counted pairs in the two hottest bins of each half
+    (bg, fg) of an int32 (R, 2, B) histogram."""
+    total = max(int(counts.sum()), 1)
+    out = {}
+    for half, name in enumerate(("bg", "fg")):
+        top = counts[:, half].sum(0).topk(2)
+        out[name] = {int(i): float(v) / total for v, i in zip(*top)}
+    return out
 
 
 def check_b1(dev) -> dict:
@@ -273,8 +299,10 @@ def check_b1(dev) -> dict:
         seed, dither = norm_dither_seed(dseed)
         kw = dict(n_cls=c, n_buckets=nb, edges=edges, seed=seed, dither=dither)
         got = fu_histogram(ls, lbl, mats, **kw)
+        again = fu_histogram(ls, lbl, mats, **kw)
         ref = fu_histogram_plain(ls, lbl, mats, **kw)
         torch.cuda.synchronize()
+        deterministic = bool(torch.equal(got, again))
         pairs = scales * c * int((lbl >= 0).sum())
         rows_equal = bool((got.sum((1, 2)) == ref.sum((1, 2))).all())
         diff = (got.long() - ref.long()).abs()
@@ -291,8 +319,10 @@ def check_b1(dev) -> dict:
               f"align_corners={align} scales={scales} "
               f"edges={edges} dither={dseed} ignore={ignore} pairs={pairs} "
               f"row_totals_equal={rows_equal} hist_l1={l1} "
-              f"hist_max_abs={max_abs} loss_kernel={loss_k!r} "
-              f"loss_plain={loss_p!r}", flush=True)
+              f"hist_max_abs={max_abs} two_runs_bit_equal={deterministic} "
+              f"loss_kernel={loss_k!r} loss_plain={loss_p!r}", flush=True)
+        if not deterministic:
+            raise AssertionError(f"B1 {name}: two runs differ")
         if not rows_equal:
             raise AssertionError(f"B1 {name}: per-row totals differ")
         if l1 > 1e-4 * max(pairs, 1):
@@ -301,6 +331,8 @@ def check_b1(dev) -> dict:
         if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5):
             raise AssertionError(f"B1 {name}: loss {loss_k} vs plain {loss_p}")
         if name in B1_TIMED:
+            print(f"B1 {name}: share of counted pairs in the two hottest bins "
+                  f"of each half {json.dumps(hot_bin_shares(got))}", flush=True)
             timed[name] = dict(ls=ls, lbl=lbl, mats=mats, kw=kw, pairs=pairs,
                                max_abs=max_abs, out_numel=got.numel())
 

@@ -112,9 +112,19 @@ __device__ __forceinline__ void exp_terms(int n_cls, float (&z)[MAXC], float& su
   }
 }
 
+// The upsampled logit of one output pixel from its four source logits
+// x_rs (source row r0/r1, column s0/s1): height weights first, then width
+// weights (the TPU kernel's matmul order). Every kernel that interpolates
+// calls this one function, whatever memory the four values come from.
+__device__ __forceinline__ float tap_combine(const Taps& t, float x00, float x10,
+                                             float x01, float x11) {
+  const float u0 = __fadd_rn(__fmul_rn(t.a0, x00), __fmul_rn(t.a1, x10));
+  const float u1 = __fadd_rn(__fmul_rn(t.a0, x01), __fmul_rn(t.a1, x11));
+  return __fadd_rn(__fmul_rn(t.b0, u0), __fmul_rn(t.b1, u1));
+}
+
 // Upsample the n_cls logit planes at `base` (each hs x ws, `plane` apart)
-// to one output pixel, height weights first and then width weights (the
-// TPU kernel's matmul order), then `exp_terms`.
+// to one output pixel (`tap_combine`), then `exp_terms`.
 template <int MAXC>
 __device__ __forceinline__ void softmax_terms(const float* base, long long plane,
                                               int ws, int n_cls, const Taps& t,
@@ -123,11 +133,8 @@ __device__ __forceinline__ void softmax_terms(const float* base, long long plane
   for (int c = 0; c < MAXC; ++c) {
     if (c < n_cls) {
       const float* lc = base + c * plane;
-      const float u0 = __fadd_rn(__fmul_rn(t.a0, __ldg(lc + t.r0 * ws + t.s0)),
-                                 __fmul_rn(t.a1, __ldg(lc + t.r1 * ws + t.s0)));
-      const float u1 = __fadd_rn(__fmul_rn(t.a0, __ldg(lc + t.r0 * ws + t.s1)),
-                                 __fmul_rn(t.a1, __ldg(lc + t.r1 * ws + t.s1)));
-      z[c] = __fadd_rn(__fmul_rn(t.b0, u0), __fmul_rn(t.b1, u1));
+      z[c] = tap_combine(t, __ldg(lc + t.r0 * ws + t.s0), __ldg(lc + t.r1 * ws + t.s0),
+                         __ldg(lc + t.r0 * ws + t.s1), __ldg(lc + t.r1 * ws + t.s1));
     }
   }
   exp_terms<MAXC>(n_cls, z, sum);

@@ -61,6 +61,9 @@ class FuMats:
     h_end: torch.Tensor
     w_beg: torch.Tensor
     w_end: torch.Tensor
+    # (rows, columns) of the largest source window of one of B1's tiles
+    # (`tap_window`), for its launch plan
+    window: tuple = (0, 0)
 
 
 def _taps(m: np.ndarray):
@@ -97,9 +100,10 @@ def fu_mats(hs: int, ws: int, out_hw: tuple[int, int], h_pad: int,
                   ((0, w_pad - ow), (0, 0))).astype(np.float32)
     arrays = (mh, np.ascontiguousarray(mw_t.T), *_taps(mh), *_taps(mw_t),
               *_ranges(mh), *_ranges(mw_t))
+    window = tap_window(mh, mw_t, TILE_H, TILE_W_LOG2)
     # built outside inference mode so the cached tensors are usable anywhere
     with torch.inference_mode(False):
-        return FuMats(*(torch.as_tensor(a, device=device) for a in arrays))
+        return FuMats(*(torch.as_tensor(a, device=device) for a in arrays), window)
 
 
 def plain_fields(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats, *,
@@ -170,6 +174,227 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# B1's launch plan. A block of the kernel (csrc/fu_hist.cu) holds, in
+# dynamic shared memory, its class rows as 16-bit counters two to a 32-bit
+# word ((2, B) counters, 4B bytes, per row), one spare word per lane, and
+# two windows of source logits (the tile it is on and the next). Each lane
+# counts bucket 0 of the bg half in 8-bit register counters.
+SMEM_PER_BLOCK = 232_448   # the shared memory one block may opt into (H100)
+SMEM_PER_SM = 233_472      # an SM's shared memory, 1 KB of it per block reserved
+REGS_PER_SM = 65_536
+STATIC_SMEM = 256          # the kernel's own table of row pointers
+SPARE_WORDS = 32
+COUNT_MAX = 0xFFFF         # a 16-bit counter: the most a table bin may receive
+LANE_MAX = 0xFF            # an 8-bit register counter: the most pixels a lane counts
+MAX_CLUSTER = 8            # the portable cluster size
+TILE_W_LOG2 = 7            # tiles of 128 columns: four warps side by side
+TILE_H = 16
+
+
+def max_threads(n_cls: int) -> int:
+    """The kernel instance's largest block (its __launch_bounds__): 1024
+    threads at 64 registers up to 17 classes, else 512 at 128."""
+    return 1024 if n_cls <= 17 else 512
+
+
+def table_words(rows: int, n_buckets: int) -> int:
+    """32-bit words of `rows` class rows of 16-bit (bg, fg) counters."""
+    return rows * n_buckets
+
+
+@dataclass(frozen=True)
+class B1Layout:
+    """What one block of a B1 launch holds. `groups` blocks share a scale's
+    `n_cls` rows, `rows_per` each (the last may hold fewer). `cluster`: the
+    groups are the blocks of a thread-block cluster, which count each pixel
+    once and add into each other's tables; otherwise each group is a block
+    of its own that computes every pixel again and counts its own rows (the
+    old layout, which `b1_layout` makes only when asked). A block of
+    `threads` threads walks tiles of tile_h x 2**tile_w_log2 pixels and
+    stages each tile's win_h x win_w source logits (0 x 0: none)."""
+    n_cls: int
+    n_buckets: int
+    groups: int
+    rows_per: int
+    cluster: bool
+    threads: int
+    tile_h: int
+    tile_w_log2: int
+    win_h: int
+    win_w: int
+
+    @property
+    def softmax_passes(self) -> int:
+        """How many times the grid computes each pixel's softmax per scale."""
+        return 1 if self.cluster else self.groups
+
+    @property
+    def tile_px(self) -> int:
+        return self.tile_h << self.tile_w_log2
+
+    @property
+    def win_off(self) -> int:
+        """The window's offset in words: after the table and the spare
+        words, at a 16-byte boundary."""
+        return -(-(table_words(self.rows_per, self.n_buckets) + SPARE_WORDS) // 4) * 4
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory per block, bytes: the table, the spare
+        words and two windows (classes padded to 4)."""
+        cp = -(-self.n_cls // 4) * 4
+        return 4 * (self.win_off + 2 * self.win_h * self.win_w * cp)
+
+
+def sm_threads(threads: int, smem: int, n_cls: int) -> int:
+    """The threads an SM holds of blocks of `threads` threads and `smem`
+    bytes: bounded by its shared memory and its registers (64 or 128 a
+    thread, `max_threads`)."""
+    by_smem = SMEM_PER_SM // (smem + STATIC_SMEM + 1024)
+    by_regs = REGS_PER_SM // (64 if max_threads(n_cls) == 1024 else 128) // threads
+    return min(by_smem, by_regs) * threads
+
+
+def _span(m: np.ndarray, tile: int) -> int:
+    """The source rows a tile of `tile` output rows of the bilinear matrix
+    `m` (n_out, n_src) reads: from its first row's first tap to its last
+    real row's second (pad rows, all zero, read from global memory)."""
+    lo, _, _ = _taps(m)
+    lo = np.where((m != 0).any(1), lo, -1).astype(np.int64)
+    lo = np.pad(lo, (0, -len(lo) % tile), constant_values=-1).reshape(-1, tile)
+    last = np.where(lo >= 0, np.minimum(lo + 1, m.shape[1] - 1), -1).max(1)
+    return int(np.where(lo[:, 0] >= 0, last - lo[:, 0] + 1, 0).max())
+
+
+def tap_window(mh: np.ndarray, mw_t: np.ndarray, tile_h: int,
+               tile_w_log2: int) -> tuple[int, int]:
+    """(rows, columns) of the largest source window of a tile of tile_h x
+    2**tile_w_log2 pixels, from the float32 matrices mh (H_pad, hs) and
+    mw_t (W_pad, ws): what B1 stages."""
+    return _span(mh, tile_h), _span(mw_t, 1 << tile_w_log2)
+
+
+def b1_window(mats: FuMats, tile_h: int = TILE_H,
+              tile_w_log2: int = TILE_W_LOG2) -> tuple[int, int]:
+    """`tap_window` of these taps at another tile (a device read where the
+    matrices live on the card)."""
+    if (tile_h, tile_w_log2) == (TILE_H, TILE_W_LOG2):
+        return mats.window
+    return tap_window(mats.mh.cpu().numpy(), mats.mw.T.cpu().numpy(), tile_h,
+                      tile_w_log2)
+
+
+def b1_layout(n_cls: int, n_buckets: int, window: tuple[int, int] = (0, 0), *,
+              tile_h: int = TILE_H, tile_w_log2: int = TILE_W_LOG2,
+              groups: int | None = None, cluster: bool = True,
+              threads: int | None = None) -> B1Layout:
+    """The fewest row groups whose share of the rows fits one block (a
+    cluster of that many blocks); the source `window` staged where it fits
+    beside the table; blocks of 256, 512 or 1024 threads, whichever lets an
+    SM hold the most threads (the smaller on a tie). `groups`, `cluster`,
+    `threads` and a window of (0, 0) force another layout (the
+    ablation's)."""
+    if not 1 <= n_cls <= MAX_CLASSES or n_buckets < 1:
+        raise ValueError(f"B1 takes 1..{MAX_CLASSES} classes, got C={n_cls}, "
+                         f"B={n_buckets}")
+
+    def make(g, win, t=256):
+        return B1Layout(n_cls, n_buckets, g, -(-n_cls // g), cluster and g > 1, t,
+                        tile_h, tile_w_log2, *win)
+
+    room = SMEM_PER_BLOCK - STATIC_SMEM
+    if groups is None:
+        groups = next((g for g in range(1, MAX_CLUSTER + 1)
+                       if make(g, (0, 0)).smem <= room), None)
+        if groups is None:
+            raise ValueError(f"B={n_buckets} buckets of {n_cls} classes do not "
+                             f"fit a cluster of {MAX_CLUSTER} blocks")
+    if not 1 <= groups <= MAX_CLUSTER or make(groups, (0, 0)).smem > room:
+        raise ValueError(f"{groups} groups of {n_cls} rows at B={n_buckets} "
+                         "do not fit")
+    if make(groups, window).smem > room:
+        window = (0, 0)
+    smem = make(groups, window).smem
+    if threads is None:
+        sizes = [t for t in (256, 512, 1024) if t <= max_threads(n_cls)]
+        threads = max(sizes, key=lambda t: (sm_threads(t, smem, n_cls), -t))
+    if not 32 <= threads <= max_threads(n_cls) or threads % 32:
+        raise ValueError(f"{threads} threads: the C={n_cls} kernel takes 32.."
+                         f"{max_threads(n_cls)}, a multiple of 32")
+    if tile_w_log2 < 5:
+        raise ValueError("tiles are at least one warp wide")
+    return make(groups, window, threads)
+
+
+@dataclass(frozen=True)
+class B1Plan:
+    """A B1 launch: `layout` on a grid of (ctas_x, n_scales) blocks. Block x
+    of scale s is pixel stream x (cluster) or x // groups (no cluster), and
+    stream j walks tiles j, j + streams, ... of the scale's
+    n * tiles_h * tiles_w."""
+    layout: B1Layout
+    n: int
+    n_scales: int
+    h_pad: int
+    w_pad: int
+    ctas_x: int
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.h_pad // self.layout.tile_h)
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.w_pad >> self.layout.tile_w_log2)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.n * self.tiles_h * self.tiles_w
+
+    @property
+    def streams(self) -> int:
+        return self.ctas_x if self.layout.cluster else self.ctas_x // self.layout.groups
+
+    def stream_tiles(self, stream: int) -> range:
+        return range(stream, self.n_tiles, self.streams)
+
+    @property
+    def lane_pixels(self) -> int:
+        """The most pixels one thread counts."""
+        layout = self.layout
+        return -(-self.n_tiles // self.streams) * -(-layout.tile_px // layout.threads)
+
+    @property
+    def table_pixels(self) -> int:
+        """The most pixels whose counts one block's table receives: its
+        stream's, or its cluster's streams'."""
+        per_stream = -(-self.n_tiles // self.streams) * self.layout.tile_px
+        return per_stream * (self.layout.groups if self.layout.cluster else 1)
+
+
+def b1_plan(layout: B1Layout, n: int, n_scales: int, h_pad: int, w_pad: int,
+            *, resident: int) -> B1Plan:
+    """One wave of the `resident` blocks the card holds, split over the
+    scales, with more streams where a table would otherwise receive more
+    than COUNT_MAX pixels or a lane count more than LANE_MAX; never more
+    streams than tiles (a cluster's streams rounded up to whole
+    clusters)."""
+    g = layout.groups
+    tiles = n * -(-h_pad // layout.tile_h) * -(-w_pad >> layout.tile_w_log2)
+    share = g if layout.cluster else 1
+    cap = min(COUNT_MAX // (share * layout.tile_px),
+              LANE_MAX // -(-layout.tile_px // layout.threads))
+    if cap < 1:
+        raise ValueError("a tile is larger than the counters can count")
+    per_scale = max(resident // n_scales // g, 1) * g
+    streams = per_scale if layout.cluster else per_scale // g
+    streams = min(max(streams, -(-tiles // cap)), tiles)
+    if layout.cluster:
+        streams = -(-streams // g) * g
+    ctas_x = streams if layout.cluster else streams * g
+    return B1Plan(layout, n, n_scales, h_pad, w_pad, ctas_x)
+
+
 class FuHistogram:
     """The B1 entry: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. `launches` counts kernel launches (plain runs do not)."""
@@ -195,25 +420,40 @@ class FuHistogram:
     def _launch(self, ls, labels, mats, *, n_cls, n_buckets, edges, seed,
                 dither):
         _check(ls, labels, mats, n_cls)
-        n, r_rows, hs, ws = ls.shape
-        h_pad, w_pad = labels.shape[1:]
-        out = torch.zeros((r_rows, 2, n_buckets), dtype=torch.int32,
-                          device=ls.device)
-        half, shift, q0, e_min, seed32, inv_b = bucket_params(n_buckets,
-                                                              edges, seed)
         lib = _fu_lib()
-        err = lib.fu_hist_fwd(
-            _ptr(ls), _ptr(labels), _ptr(mats.h_lo), _ptr(mats.h_w0),
-            _ptr(mats.h_w1), _ptr(mats.w_lo), _ptr(mats.w_w0),
-            _ptr(mats.w_w1), _ptr(out), n, r_rows // n_cls, n_cls, hs, ws,
-            h_pad, w_pad, n_buckets, int(edges != "uniform"), half, shift,
-            q0, e_min, int(dither), seed32, inv_b, ls.device.index,
-            stream_ptr(ls.device))
-        if err != 0:
-            raise RuntimeError(f"fu_hist launch failed: "
-                               f"{build.error_string(lib, err)} ({err})")
+        n, r_rows = ls.shape[:2]
+        plan = default_plan(n_cls, n_buckets, mats.window, n, r_rows // n_cls,
+                            *labels.shape[1:], edges == "uniform" and not dither,
+                            ls.device.index)
+        out = run_plan(lib, plan, ls, labels, mats, n_cls=n_cls,
+                       n_buckets=n_buckets, edges=edges, seed=seed,
+                       dither=dither)
         self.launches += 1
         return out
+
+
+def run_plan(lib, plan: B1Plan, ls, labels, mats, *, n_cls, n_buckets, edges,
+             seed, dither) -> torch.Tensor:
+    """Launch `lib`'s B1 (the committed library, or an edited build of the
+    same source) with `plan` on checked CUDA tensors; the int32 counts."""
+    n, r_rows, hs, ws = ls.shape
+    h_pad, w_pad = labels.shape[1:]
+    layout = plan.layout
+    out = torch.zeros((r_rows, 2, n_buckets), dtype=torch.int32,
+                      device=ls.device)
+    half, shift, q0, e_min, seed32, inv_b = bucket_params(n_buckets, edges, seed)
+    err = lib.fu_hist_fwd(
+        _ptr(ls), _ptr(labels), _ptr(mats.h_lo), _ptr(mats.h_w0),
+        _ptr(mats.h_w1), _ptr(mats.w_lo), _ptr(mats.w_w0), _ptr(mats.w_w1),
+        _ptr(out), n, r_rows // n_cls, n_cls, hs, ws, h_pad, w_pad, n_buckets,
+        int(edges != "uniform"), half, shift, q0, e_min, int(dither), seed32,
+        inv_b, layout.tile_h, layout.tile_w_log2, layout.groups, layout.rows_per,
+        int(layout.cluster), layout.win_h, layout.win_w, plan.ctas_x,
+        layout.threads, layout.smem, ls.device.index, stream_ptr(ls.device))
+    if err != 0:
+        raise RuntimeError(f"fu_hist launch failed: "
+                           f"{build.error_string(lib, err)} ({err})")
+    return out
 
 
 def _check(ls, labels, mats, n_cls):
@@ -245,14 +485,45 @@ def _check(ls, labels, mats, n_cls):
         raise ValueError("interpolation taps do not match the shapes")
 
 
+def set_argtypes(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare B1's two C entries on `lib` (built from csrc/fu_hist.cu)."""
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fu_hist_fwd.argtypes = [vp] * 9 + [i] * 12 + [f, i, i, f] + [i] * 11 + [vp]
+    lib.fu_hist_fwd.restype = ctypes.c_int
+    lib.fu_hist_resident.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.fu_hist_resident.restype = ctypes.c_int
+    return lib
+
+
 def _fu_lib() -> ctypes.CDLL:
     lib = build.load("fu_hist")
-    fn = lib.fu_hist_fwd
-    if fn.argtypes is None:
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 9 + [i] * 12 + [f, i, i, f, i, vp]
-        fn.restype = ctypes.c_int
+    if lib.fu_hist_fwd.argtypes is None:
+        set_argtypes(lib)
     return lib
+
+
+def resident_blocks(lib, layout: B1Layout, device: int, uniform: bool = True) -> int:
+    """How many blocks of `layout`'s kernel (the one compiled for uniform
+    buckets without dither, or the general one) the card holds at once (the
+    CUDA occupancy query; whole clusters where the layout has one)."""
+    got = ctypes.c_int(0)
+    err = lib.fu_hist_resident(layout.n_cls, layout.threads, layout.smem,
+                               layout.groups, int(layout.cluster), int(uniform),
+                               device, ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"fu_hist occupancy query failed: "
+                           f"{build.error_string(lib, err)} ({err})")
+    return got.value
+
+
+@functools.lru_cache(maxsize=64)
+def default_plan(n_cls: int, n_buckets: int, window: tuple, n: int,
+                 n_scales: int, h_pad: int, w_pad: int, uniform: bool,
+                 device: int) -> B1Plan:
+    """The wrapper's plan for these shapes on this card (computed once)."""
+    layout = b1_layout(n_cls, n_buckets, window)
+    return b1_plan(layout, n, n_scales, h_pad, w_pad,
+                   resident=resident_blocks(_fu_lib(), layout, device, uniform))
 
 
 fu_histogram = FuHistogram()
