@@ -45,12 +45,16 @@ Phases (any failure raises and the run exits non-zero):
      version at the HRNetv2 cell's shape (17 rows of 8 x 544 x 960 pixels)
      and at edge shapes (one row, an odd row length, 136 per-image rows,
      all errors 0, all exactly 1, errors piled in buckets 0 and 2047, every
-     bucket edge and its float32 neighbours, `classes_to_ignore` pixels):
-     counts and fixed-point sums equal, the error sums within one float32
+     bucket edge and its float32 neighbours, `classes_to_ignore` pixels,
+     the cell's shape from the logits of an untrained net, views whose
+     errors and flags start at other alignments, errors above 1):
+     the int32 counts and int64 fixed-point sums equal, the float32
+     histograms bit-equal, the error sums within one float32
      rounding of a float64 sum (plus 2^-48 per pixel in bucket 0), the
      per-class losses equal and within 1e-5 of a float64 evaluation, two
-     runs bit-equal; with its time, the plain version's, its bound and the
-     pairs in the two hot buckets;
+     runs bit-equal; with the time, the plain version's, the bound and the
+     pairs in each of the four hot bins (buckets 0 and 2047 of both
+     halves) at the cell, piled and untrained-net cases (B3_TIMED);
  10. kernel B4 (the generic backward gather) against its plain version at
      the same shapes, from the bf16-rounded table of a forward on the same
      inputs: bit-equal, two runs bit-equal; with its time and bound;
@@ -952,7 +956,9 @@ def train_card_vs_cpu(dev, cfg, what: str = "OCRNet") -> None:
 # ---------------------------------------------------------------------------
 
 B3_CASES = ("cell", "per_image_136", "r1", "p_odd", "zeros", "ones", "piled",
-            "edges", "classes_to_ignore")
+            "edges", "classes_to_ignore", "init", "misaligned", "above_one")
+# the cases whose times phase 9 prints; the cell's goes into the record
+B3_TIMED = ("cell", "piled", "init")
 # (N, H, W) of the cell's logits, and (R, P) of the synthetic cases
 B3_CELL = (8, 544, 960)
 B3_ROWS = {"r1": (1, 100_003), "p_odd": (17, 123_457), "other": (17, 500_000)}
@@ -960,20 +966,27 @@ B3_ROWS = {"r1": (1, 100_003), "p_odd": (17, 123_457), "other": (17, 500_000)}
 
 def b3_inputs(name, dev):
     """(errors (R, P) float32, fg (R, P) bool) of one phase-9 case: the
-    rows of `lovasz_rows` from seeded logits and blocky labels for the
-    cell (17 x 8·544·960), its per-image form (136 x 544·960) and a
-    `classes_to_ignore` case; synthetic rows for the others."""
+    rows of `lovasz_rows` from seeded logits (3 x randn) and blocky labels
+    for the cell (17 x 8·544·960), its per-image form (136 x 544·960) and a
+    `classes_to_ignore` case, and at the cell's shape from 0.1 x randn
+    logits ("init": the near-uniform softmax of an untrained net);
+    synthetic rows for the others ("misaligned": views one float and two
+    bytes into their storage, so that neither a row's errors nor its flags
+    start 16-byte aligned, nor alike; "above_one": 30 % of the errors in
+    [1, 3), which bf16 rounds above 1, 10 % in (-2^-12, 0], negative errors
+    of bucket 0, and 5 % in (-1.5, -0.5], negative ids counted nowhere)."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
         lovasz_rows)
 
     seed = sum(map(ord, name))
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
-    if name in ("cell", "per_image_136", "classes_to_ignore"):
+    if name in ("cell", "per_image_136", "classes_to_ignore", "init"):
         n, h, w = B3_CELL
         if name == "classes_to_ignore":
             n, h, w = 2, h // 2, w // 2
-        logits = 3.0 * torch.randn((n, 17, h, w), generator=gen, device=dev)
+        std = 0.1 if name == "init" else 3.0
+        logits = std * torch.randn((n, 17, h, w), generator=gen, device=dev)
         labels = torch.as_tensor(blocky_labels(rng, n, h, w, 18, 8), device=dev)
         e, fg, _ = lovasz_rows(logits, labels, 17 if name == "classes_to_ignore"
                                else None, per_image=name == "per_image_136")
@@ -988,6 +1001,11 @@ def b3_inputs(name, dev):
         which = torch.rand((r_rows, p), generator=gen, device=dev)
         e = torch.where(which < 0.45, u * (2.0 ** -11) * 0.999,
                         torch.where(which < 0.9, 1.0 - u * 2.0 ** -12, u))
+    elif name == "above_one":
+        which = torch.rand((r_rows, p), generator=gen, device=dev)
+        e = torch.where(which < 0.3, 1.0 + 2.0 * u,
+                        torch.where(which < 0.4, -u * 2.0 ** -12,
+                                    torch.where(which < 0.45, -0.5 - u, u ** 3)))
     elif name == "edges":       # k/2048 and its float32 neighbours
         k = torch.arange(2049, dtype=torch.float32, device=dev) / 2048
         row = torch.cat([k, torch.nextafter(k, torch.tensor(2.0, device=dev)),
@@ -996,6 +1014,9 @@ def b3_inputs(name, dev):
     else:
         e = u ** 3
     fg = torch.rand(e.shape, generator=gen, device=dev) < 0.3
+    if name == "misaligned":
+        e = torch.cat([e.new_zeros(1), e.flatten()])[1:].view(e.shape)
+        fg = torch.cat([fg.new_zeros(2), fg.flatten()])[2:].view(fg.shape)
     return e.contiguous(), fg
 
 
@@ -1011,9 +1032,18 @@ def se_float64(e, fg):
     return se.reshape(e.shape[0], 2, N_BUCKETS)
 
 
+def b3_hot_shares(got: torch.Tensor, pairs: int) -> dict:
+    """The share of pairs in each of the four hot bins (buckets 0 and 2047
+    of the bg and fg halves) of a (R, 2048, 4) histogram."""
+    return {f"{half}_{b}": float(got[:, b, col].sum()) / pairs
+            for half, col in (("bg", 1), ("fg", 0)) for b in (0, 2047)}
+
+
 def check_b3(dev) -> dict:
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
         bucket_histogram, bucket_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import (
+        bucket_stats_plain)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
         losses_and_tables)
 
@@ -1023,19 +1053,23 @@ def check_b3(dev) -> dict:
         got = bucket_histogram(e, fg)
         again = bucket_histogram(e, fg)
         ref = bucket_histogram_plain(e, fg)
+        stats_k, stats_p = bucket_histogram.stats(e, fg), bucket_stats_plain(e, fg)
         se64 = se_float64(e, fg)
         torch.cuda.synchronize()
         r_rows, p = e.shape
         counts_equal = torch.equal(got[..., :2], ref[..., :2])
+        # the int32 counts and int64 fixed-point sums themselves
+        stats_equal = all(map(torch.equal, stats_k, stats_p))
         equal = torch.equal(got, ref)
         repeat = torch.equal(got, again)
         se_k = got[..., [3, 2]].transpose(1, 2).double()     # (R, [bg, fg], B)
         n_b0 = got[:, 0, [1, 0]].double()
-        allowed = (2.0 ** -24 + 1e-9) * se64
+        # sums are negative where negative errors of bucket 0 outweigh
+        allowed = (2.0 ** -24 + 1e-9) * se64.abs()
         allowed[..., 0] += n_b0 * 2.0 ** -48
         se_err = (se_k - se64).abs()
         se_ok = bool((se_err <= allowed).all())
-        se_rel = float((se_err / se64.clamp_min(1e-30)).max())
+        se_rel = float((se_err / se64.abs().clamp_min(1e-30)).max())
         per_k = losses_and_tables(got)[0]
         per_p = losses_and_tables(ref)[0]
         hist64 = torch.stack([got[..., 0].double(), got[..., 1].double(),
@@ -1044,24 +1078,28 @@ def check_b3(dev) -> dict:
         loss_err = float((per_k.double() - per64).abs().max())
         hot = float((got[:, 0, :2].sum() + got[:, -1, :2].sum()) / (r_rows * p))
         print(f"B3 {name}: R={r_rows} P={p} counts_equal={counts_equal} "
+              f"counts_and_sums_equal={stats_equal} "
               f"bit_equal_to_plain={equal} two_runs_bit_equal={repeat} "
               f"se_within_f32_rounding_of_f64={se_ok} se_max_rel_vs_f64={se_rel!r} "
               f"per_class_loss_max_abs_vs_f64={loss_err!r} "
               f"pairs_in_buckets_0_and_2047={hot!r}", flush=True)
-        if not (counts_equal and equal and repeat and se_ok
+        if not (counts_equal and stats_equal and equal and repeat and se_ok
                 and torch.equal(per_k, per_p) and loss_err <= 1e-5):
             raise AssertionError(f"B3 {name} disagrees with its plain version "
                                  "or the float64 sums")
-        if name == "cell":
+        if name in B3_TIMED:
             kernel_ms = cuda_ms(lambda: bucket_histogram(e, fg))
             plain_ms = cuda_ms(lambda: bucket_histogram_plain(e, fg), reps=5)
             n_bytes = 4 * e.numel() + fg.numel() + 4 * got.numel()
-            record = _record(bucket_histogram, float((got - ref).abs().max()),
-                             kernel_ms, plain_ms, n_bytes,
-                             B3_OPS_PER_PAIR * e.numel(),
-                             f"B3 cell ({e.numel()} pairs, {hot!r} of them "
-                             "in buckets 0 and 2047)")
-        del e, fg, got, again, ref, se64
+            line = _record(bucket_histogram, float((got - ref).abs().max()),
+                           kernel_ms, plain_ms, n_bytes,
+                           B3_OPS_PER_PAIR * e.numel(),
+                           f"B3 {name} ({e.numel()} pairs, {hot!r} of them "
+                           "in buckets 0 and 2047; per hot bin "
+                           f"{json.dumps(b3_hot_shares(got, e.numel()))})")
+            if name == "cell":
+                record = line
+        del e, fg, got, again, ref, se64, stats_k, stats_p
     return record
 
 

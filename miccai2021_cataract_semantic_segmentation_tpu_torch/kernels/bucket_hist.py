@@ -20,12 +20,16 @@ caller excluded arrive as e = 0, fg = False and count as background in
 bucket 0, as on the TPU.
 
 `bucket_histogram` runs the CUDA kernel (csrc/bucket_hist.cu) for CUDA
-tensors and the plain version for CPU tensors; there is no fallback from
-one to the other. Its `launches` counts kernel launches.
+tensors, on the launch plan `b3_plan` computes (one wave of resident
+blocks, capped so that the kernel's 32-bit offset sums and 12-bit lane
+counts cannot overflow), and the plain version for CPU tensors; there is
+no fallback from one to the other. Its `launches` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -36,6 +40,16 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.lovasz_hist imp
 N_BUCKETS = 2048            # fixed on this route, whatever lovasz_buckets says
 SUM_SHIFT = 18              # log2 of the fixed-point scale of buckets >= 1
 SUM_SHIFT_0 = 48            # ... and of bucket 0
+# The kernel's shared table sums, per bin of buckets 1..2046, the offsets
+# bf16(e) * 2^18 - 128 b in 32 bits. An offset lies in [-OFFSET_MIN,
+# OFFSET_MAX] (half a bf16 ulp below 1 is 512 units), so a block may take
+# at most BLOCK_PIXELS pixels of a row (csrc/bucket_hist.cu kBlockPixels).
+# A lane counts bucket 0 in 12 bits of a register: at most LANE_PIXELS
+# pixels a lane (kLanePixels).
+OFFSET_MIN, OFFSET_MAX = 512, 640
+BLOCK_PIXELS = 1 << 21
+LANE_PIXELS = 4095
+EDGE_PIXELS = 6             # a block's head and tail pixels, 3 each at most
 
 
 def bucket_ids(errors_t: torch.Tensor) -> torch.Tensor:
@@ -68,15 +82,21 @@ def bucket_stats_plain(errors_t: torch.Tensor, fg_t: torch.Tensor):
             sums.reshape(r_rows, 2, N_BUCKETS))
 
 
+@functools.lru_cache(maxsize=8)
+def _sum_scale(device: torch.device) -> torch.Tensor:
+    """The (B,) float64 value of a sum unit per bucket, made once a device."""
+    scale = torch.full((N_BUCKETS,), 2.0 ** -SUM_SHIFT, dtype=torch.float64,
+                       device=device)
+    scale[0] = 2.0 ** -SUM_SHIFT_0
+    return scale
+
+
 @torch.no_grad()
 def hist_from_stats(counts: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
     """(R, 2, B) counts and fixed-point sums -> float32 (R, B, 4)
     [n_fg, n_bg, se_fg, se_bg]: each sum scaled in float64, rounded once to
     float32."""
-    scale = torch.full((N_BUCKETS,), 2.0 ** -SUM_SHIFT, dtype=torch.float64,
-                       device=sums.device)
-    scale[0] = 2.0 ** -SUM_SHIFT_0
-    se = (sums.to(torch.float64) * scale).to(torch.float32)
+    se = (sums.to(torch.float64) * _sum_scale(sums.device)).to(torch.float32)
     n = counts.to(torch.float32)
     return torch.stack([n[:, 1], n[:, 0], se[:, 1], se[:, 0]], dim=-1)
 
@@ -103,6 +123,42 @@ def _check(errors_t: torch.Tensor, fg_t: torch.Tensor) -> None:
     if not (1 <= r_rows <= 65535 and 1 <= p < 2 ** 26):
         raise ValueError(f"the kernels take 1..65535 rows of 1..2^26 pixels, "
                          f"got ({r_rows}, {p})")
+
+
+@dataclass(frozen=True)
+class B3Plan:
+    """B3's grid: `per_row` blocks of `threads` over every row, each walking
+    `chunk` float4 vectors of it (counted from the row's first 16-byte
+    aligned error), a vector a lane at a time; the first block also takes
+    the up to 3 pixels before that error, the last the up to 3 after the
+    row's last whole vector, one a lane."""
+    per_row: int
+    chunk: int
+    threads: int
+
+    @property
+    def block_pixels(self) -> int:
+        """The most pixels of one row a block of this plan takes."""
+        return 4 * self.chunk + EDGE_PIXELS
+
+    @property
+    def lane_pixels(self) -> int:
+        """The most pixels a lane of this plan takes."""
+        return 4 * -(-self.chunk // self.threads) + 1
+
+
+def b3_plan(rows: int, p: int, resident: int, threads: int,
+            per_row: int | None = None) -> B3Plan:
+    """The rows spread over one wave of `resident` blocks, never more (a
+    second, partial wave would run alone), or `per_row` blocks a row where
+    given; at least a vector a lane, at most BLOCK_PIXELS pixels a block
+    and LANE_PIXELS a lane."""
+    n_vec = max(p // 4, 1)
+    want = per_row or max(1, resident // rows)
+    chunk = max(-(-n_vec // want), 1 if per_row else threads)
+    chunk = min(chunk, (BLOCK_PIXELS - EDGE_PIXELS) // 4,
+                (LANE_PIXELS - 1) // 4 * threads)
+    return B3Plan(per_row=-(-n_vec // chunk), chunk=chunk, threads=threads)
 
 
 class BucketHistogram:
@@ -139,27 +195,58 @@ class BucketHistogram:
                              device=errors_t.device)
         sums = torch.zeros((r_rows, 2, N_BUCKETS), dtype=torch.int64,
                            device=errors_t.device)
+        dev = errors_t.device.index
         lib = _hist_lib()
-        err = lib.bucket_hist_fwd(_ptr(errors_t), _ptr(fg_t), r_rows, p,
-                                  _ptr(counts), _ptr(sums),
-                                  errors_t.device.index,
-                                  stream_ptr(errors_t.device))
-        if err != 0:
-            raise RuntimeError(f"bucket_hist launch failed: "
-                               f"{build.error_string(lib, err)} ({err})")
+        run_plan(lib, default_plan(r_rows, p, dev), errors_t, fg_t, counts, sums)
         self.launches += 1
         return counts, sums
 
 
+def run_plan(lib, plan: B3Plan, errors_t, fg_t, counts, sums) -> None:
+    """Launch `lib`'s B3 kernel on the current stream with `plan`."""
+    r_rows, p = errors_t.shape
+    err = lib.bucket_hist_fwd(_ptr(errors_t), _ptr(fg_t), r_rows, p,
+                              plan.per_row, plan.chunk, _ptr(counts),
+                              _ptr(sums), errors_t.device.index,
+                              stream_ptr(errors_t.device))
+    if err != 0:
+        raise RuntimeError(f"bucket_hist launch failed: "
+                           f"{build.error_string(lib, err)} ({err})")
+
+
+def set_argtypes(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare B3's C entries on `lib` (built from csrc/bucket_hist.cu)."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.bucket_hist_fwd.argtypes = [vp, vp, i, i, i, i, vp, vp, i, vp]
+    lib.bucket_hist_fwd.restype = i
+    lib.bucket_hist_resident.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.bucket_hist_resident.restype = i
+    return lib
+
+
 def _hist_lib() -> ctypes.CDLL:
     lib = build.load("bucket_hist")
-    fn = lib.bucket_hist_fwd
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, ctypes.c_int, ctypes.c_longlong, vp, vp,
-                       ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
+    if lib.bucket_hist_fwd.argtypes is None:
+        set_argtypes(lib)
     return lib
+
+
+def resident(lib, device: int) -> tuple[int, int]:
+    """(blocks the card holds at once, threads a block) of `lib`'s kernel
+    (the CUDA occupancy query)."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.bucket_hist_resident(device, ctypes.byref(blocks),
+                                   ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"bucket_hist occupancy query failed: "
+                           f"{build.error_string(lib, err)} ({err})")
+    return blocks.value, threads.value
+
+
+@functools.lru_cache(maxsize=64)
+def default_plan(rows: int, p: int, device: int) -> B3Plan:
+    """The wrapper's plan for (rows, p) on this card (computed once)."""
+    return b3_plan(rows, p, *resident(_hist_lib(), device))
 
 
 bucket_histogram = BucketHistogram()
