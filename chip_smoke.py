@@ -9,19 +9,21 @@ Phases (any failure raises and the run exits non-zero):
   3. kernel B1 (the fused bucket-Lovász histogram) against its plain
      PyTorch version on the card, at the flagship shape (two scales,
      align_corners=True), at the UPerNet cell's (one stride-4 scale,
-     136x240 -> 544x960, align_corners=False), at edge shapes of both
+     136x240 -> 544x960, align_corners=False), at the DeepLabv3 cell's
+     (one scale, align_corners=True, B 2048), at edge shapes of both
      conventions and at the flagship's shape with peaked logits, as from a
      net that has learnt (B1_CASES): per-row totals equal, histogram L1
      <= 1e-4 of the counted pairs, loss within 1e-5, two runs bit-equal;
      with the share of counted pairs in the two hottest bins of each half,
      its time, the plain version's time and its bound at the flagship,
-     UPerNet and peaked rows (B1_TIMED);
+     UPerNet, peaked and DeepLabv3 rows (B1_TIMED);
   4. kernel B2 (the fused bucket-Lovász backward) against its plain
      version at the same shapes and conventions, from the bf16-rounded,
      cotangent-scaled table of a forward on the same inputs: its bucket ids
      counted must give B1's histogram exactly, its gradient must equal the
      plain arithmetic at those ids, and two runs must agree bit for bit;
-     with its time, the plain version's time and its bound;
+     with its time, the plain version's time, its bound and, at the timed
+     rows, the kernel alone (profiler) as a share of its call;
   5. the flagship validation (OCRNet-R50 os8, task 2, 540x960 frames padded
      to 544x960, batch 8, two-scale bucket Lovász at B=1024, bf16) through
      `validate` at full width on a seeded synthetic set, with B1's launch
@@ -242,13 +244,18 @@ B1_CASES = [
     # the flagship's shape with the logits of a net that has learnt (see
     # b1_inputs): most pairs land in bucket 0 of their half
     ("peaked", 8, 17, (68, 120), (544, 960), 1024, "uniform", None, None, True),
+    # the DeepLabv3 cell's single-scale route: align_corners=True, one scale
+    # (B1_ONE_SCALE), B 2048 (B2's table is 139 KB in bf16)
+    ("deeplabv3", 8, 17, (68, 120), (544, 960), 2048, "uniform", None, None, True),
 ]
+# the align_corners=True rows that run one scale (the single-scale route)
+B1_ONE_SCALE = ("deeplabv3",)
 
 
 def b1_scales(case):
     """The logits of a B1_CASES row: both scales, or the first alone for an
-    align_corners=False row."""
-    return 2 if case[-1] else 1
+    align_corners=False row and the rows of B1_ONE_SCALE."""
+    return 2 if case[-1] and case[0] not in B1_ONE_SCALE else 1
 
 
 def b1_inputs(case, dev):
@@ -271,7 +278,7 @@ def b1_inputs(case, dev):
 
 
 # the rows whose times phases 3-4 print; the flagship's go into the record
-B1_TIMED = ("flagship", "upernet_acf", "peaked")
+B1_TIMED = ("flagship", "upernet_acf", "peaked", "deeplabv3")
 
 
 def hot_bin_shares(counts: torch.Tensor) -> dict:
@@ -363,6 +370,7 @@ def check_b2(dev) -> dict:
         fu_histogram, fu_mats, plain_fields)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
         fu_core_fwd, grad_table, losses_and_tables, norm_dither_seed, pad_labels)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import fu_grad_ablation
 
     timed = {}
     for case in B1_CASES:
@@ -437,6 +445,10 @@ def check_b2(dev) -> dict:
         ops = b2_ops(f["pairs"], f["ls"].shape[3], f["lbl"].shape[2])
         records[name] = _record(fu_grad, f["max_abs"], kernel_ms, plain_ms,
                                 n_bytes, ops, f"B2 {name}")
+        device_ms = fu_grad_ablation.device_ms(lambda: fu_grad(*args, **f["kw"]))
+        print(f"B2 {name}: the kernel alone {device_ms!r} ms (profiler, median "
+              f"of 20), {device_ms / kernel_ms!r} of the call's {kernel_ms!r} ms",
+              flush=True)
     return records["flagship"]
 
 

@@ -64,6 +64,11 @@ class FuMats:
     # (rows, columns) of the largest source window of one of B1's tiles
     # (`tap_window`), for its launch plan
     window: tuple = (0, 0)
+    # per source column (w_beg, w_end, w_lo[w_beg], w_lo[w_end - 1]) (all 0
+    # where no output column reads it), for B2's launch plan
+    columns: tuple = ()
+    # the most output rows whose first tap is one source row, for B2's plan
+    row_run: int = 0
 
 
 def _taps(m: np.ndarray):
@@ -103,7 +108,24 @@ def fu_mats(hs: int, ws: int, out_hw: tuple[int, int], h_pad: int,
     window = tap_window(mh, mw_t, TILE_H, TILE_W_LOG2)
     # built outside inference mode so the cached tensors are usable anywhere
     with torch.inference_mode(False):
-        return FuMats(*(torch.as_tensor(a, device=device) for a in arrays), window)
+        return FuMats(*(torch.as_tensor(a, device=device) for a in arrays), window,
+                      column_facts(mw_t), row_run(mh))
+
+
+def row_run(mh: np.ndarray) -> int:
+    """The most real rows of the float32 (H_pad, hs) matrix whose first
+    nonzero entry is the same source row."""
+    lo = _taps(mh)[0][(mh != 0).any(1)]
+    return int(np.bincount(lo).max()) if lo.size else 0
+
+
+def column_facts(mw_t: np.ndarray) -> tuple:
+    """((w_beg, w_end, w_lo[w_beg], w_lo[w_end - 1]), ...) per source
+    column of the float32 (W_pad, ws) matrix, 0s where no output column
+    reads it: what B2's launch plan needs of the column taps."""
+    lo = _taps(mw_t)[0]
+    return tuple((int(b), int(e), int(lo[b]) if e > b else 0, int(lo[e - 1]) if e > b else 0)
+                 for b, e in zip(*_ranges(mw_t)))
 
 
 def plain_fields(ls: torch.Tensor, labels: torch.Tensor, mats: FuMats, *,
