@@ -81,7 +81,10 @@ Phases (any failure raises and the run exits non-zero):
      counted pairs, the backward's ids reproduce the forward's counts
      exactly, gradients equal to the plain arithmetic at those ids within
      float32 rounding, two runs bit-equal, dither under v3 refused; with
-     their times, the plain versions' and their bounds;
+     their times, the plain versions' and their bounds, each kernel alone
+     (profiler) as a share of its call and the hottest bins' shares, at
+     the flagship's grids, the DeepLabv3 cell's and the flagship's from
+     peaked logits (NCHW_TIMED);
  14. the DeepLabv3-R50 os8 cell at full width: configs/DeepLabv3_rf_lvsz.json
      with its loss replaced by {"name": "LovaszSoftmax", "lovasz_impl":
      "bucket"}, otherwise as phase 11 runs HRNetv2 (one B1 per eval-loss
@@ -1351,14 +1354,22 @@ NCHW_CASES = [
     ("adaptive", (2, 1), 2, 17, (34, 60), (272, 480), 1024, "adaptive", None),
     ("b256", (2, 1), 2, 17, (34, 60), (272, 480), 256, "uniform", None),
     ("b2048", (2, 1), 2, 17, (34, 60), (272, 480), 2048, "uniform", None),
+    # the flagship's grids from the logits of a net that has learnt (see
+    # nchw_inputs): most pairs land in bucket 0 of their half
+    ("peaked", (2,), 8, 17, (68, 120), (544, 960), 1024, "uniform", None),
 ]
+# the cases whose times phase 13 prints; flagship and deeplab_cell give the
+# kernels' records (B5/B6 and B7/B8)
+NCHW_TIMED = ("flagship", "deeplab_cell", "peaked")
 
 
 def nchw_inputs(case, dev):
     """(grids of both scales, padded int32 labels) of one phase-13 case:
-    the v3 route's own `upsample_nchw` of seeded stride-8 logits, or, for
-    raw grids, seeded full-resolution logits with labels also in the pad
-    lanes, where only w_real keeps them from counting."""
+    the v3 route's own `upsample_nchw` of seeded stride-8 logits (for
+    "peaked", std 3 plus 15 on the class of the label under each stride-8
+    cell, as B1_CASES' peaked row), or, for raw grids, seeded
+    full-resolution logits with labels also in the pad lanes, where only
+    w_real keeps them from counting."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
         pad_labels, upsample_nchw)
 
@@ -1367,6 +1378,10 @@ def nchw_inputs(case, dev):
     lbl = blocky_labels(rng, n, h, w, c + 1, 8)
     if name == "all_ignore_image":
         lbl[0] = ignore
+    raise_ = 0.0
+    if name == "peaked":
+        under = lbl[:, ::8, ::8][:, :s8[0], :s8[1]]
+        raise_ = 15.0 * (under[:, None] == np.arange(c)[None, :, None, None])
     lbl = pad_labels(torch.as_tensor(lbl, device=dev), ignore)
     h_pad, w_pad = lbl.shape[1:]
     if s8 is None:
@@ -1377,7 +1392,7 @@ def nchw_inputs(case, dev):
         lbl[:, :h, w:] = live
     else:
         grids = [upsample_nchw(torch.as_tensor(
-            3.0 * rng.standard_normal((n, c) + s8), dtype=torch.float32,
+            3.0 * rng.standard_normal((n, c) + s8) + raise_, dtype=torch.float32,
             device=dev), (h, w), True, w_pad, h_pad) for _ in range(2)]
     return grids, lbl
 
@@ -1402,8 +1417,10 @@ def phase13_nchw(dev) -> dict:
     the backward's bucket ids reproduce the forward's histogram exactly,
     its gradient equals the plain arithmetic at those ids within float32
     rounding (relative L2 1e-5), two runs of each bit-equal; dither under
-    v3 raises; the timings at the flagship (B5/B6) and DeepLabv3 cell
-    (B7/B8) shapes. Returns the four kernels' records by name."""
+    v3 raises; the timings at NCHW_TIMED, each kernel alone (profiler) and
+    its share of the call, and the share of counted pairs in the hottest
+    bins. Returns the four kernels' records by name, from the flagship
+    (B5/B6) and DeepLabv3 cell (B7/B8) shapes."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
         nchw1_gradient, nchw1_histogram, nchw_gradient, nchw_grad_plain,
         nchw_histogram, nchw_histogram_plain)
@@ -1414,6 +1431,8 @@ def phase13_nchw(dev) -> dict:
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.nchw_hist import (
         nchw_fields)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import fused_lovasz
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.fu_grad_ablation import (
+        device_ms)
 
     records = {}
     for case in NCHW_CASES:
@@ -1465,7 +1484,9 @@ def phase13_nchw(dev) -> dict:
             if not (ids_equal and grad_repeat and rel_same <= 1e-5 and dead == 0.0):
                 raise AssertionError(f"{grad.name} {name} disagrees with its plain "
                                      "arithmetic or with the forward's buckets")
-            if name in ("flagship", "deeplab_cell"):
+            if name in NCHW_TIMED:
+                print(f"{hist.name} {name}: hot-bin shares "
+                      f"{json.dumps(hot_bin_shares(got))}", flush=True)
                 hist_ms = cuda_ms(lambda: hist(g, lbl, **kw))
                 hist_plain_ms = cuda_ms(lambda: nchw_histogram_plain(g, lbl, **kw), reps=5)
                 grad_ms = cuda_ms(lambda: grad(g, lbl, table, **kw))
@@ -1475,13 +1496,23 @@ def phase13_nchw(dev) -> dict:
                 # lanes below w_real and the logits of the counted pixels;
                 # B6/B8 write every element of their gradient grids
                 read = 4 * pairs + 4 * lbl[:, :, :w].numel()
-                records[hist.name] = _record(
+                hist_rec = _record(
                     hist, max_abs, hist_ms, hist_plain_ms, read + 4 * got.numel(),
                     NCHW_HIST_OPS_PER_PAIR * pairs, f"{hist.name} {name}")
-                records[grad.name] = _record(
+                grad_rec = _record(
                     grad, g_max_abs, grad_ms, grad_plain_ms,
                     read + 4 * table.numel() + 4 * sum(t.numel() for t in g),
                     NCHW_GRAD_OPS_PER_PAIR * pairs, f"{grad.name} {name}")
+                for kernel, call_ms, fn in (
+                        (hist, hist_ms, lambda: hist(g, lbl, **kw)),
+                        (grad, grad_ms, lambda: grad(g, lbl, table, **kw))):
+                    alone = device_ms(fn, kernel=os.path.basename(kernel.source)[:-3]
+                                      + "_kernel")
+                    print(f"{kernel.name} {name}: the kernel alone {alone!r} ms "
+                          f"(profiler, median of 20), {alone / call_ms!r} of the "
+                          f"call's {call_ms!r} ms", flush=True)
+                if name != "peaked":
+                    records[hist.name], records[grad.name] = hist_rec, grad_rec
             del got, again, ref, table, dz, bids, dz_again, dz_ref, p, fg, keep
             del pbid, kbid, same_ids, dz_k, dz_p
         del grids, lbl
