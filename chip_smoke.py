@@ -1464,6 +1464,7 @@ def phase13_nchw(dev) -> dict:
             ids_equal = bool(torch.equal(count_fields(fg, keep, kbid, nb), got))
             dz_k = torch.stack(dz, dim=1)
             rel_same = rel_l2(dz_k, same_ids) if same_ids.norm() > 0 else float(dz_k.norm())
+            same_max_abs = float((dz_k - same_ids).abs().max())
             dz_p = torch.stack(dz_ref, dim=1)
             rel_plain = rel_l2(dz_k, dz_p) if dz_p.norm() > 0 else float(dz_k.norm())
             g_max_abs = float((dz_k - dz_p).abs().max())
@@ -1478,6 +1479,8 @@ def phase13_nchw(dev) -> dict:
                   f"grad_rel_l2_vs_plain={rel_plain!r} grad_max_abs_vs_plain={g_max_abs!r} "
                   f"grad_two_runs_bit_equal={grad_repeat} "
                   f"grad_on_uncounted_pixels={dead!r}", flush=True)
+            print(f"{grad.name} {name}: the gradient's largest absolute difference from "
+                  f"the plain version at the kernel's bucket ids {same_max_abs!r}", flush=True)
             if not (rows_equal and hist_repeat and l1 <= 1e-3 * max(pairs, 1)):
                 raise AssertionError(f"{hist.name} {name} disagrees with its plain "
                                      f"version (L1 {l1} of {pairs} pairs)")
