@@ -59,17 +59,30 @@ Phases (any failure raises and the run exits non-zero):
      halves) at the cell, piled and untrained-net cases (B3_TIMED);
  10. kernel B4 (the generic backward gather) against its plain version at
      the same shapes, from the bf16-rounded table of a forward on the same
-     inputs: bit-equal, two runs bit-equal; with its time and bound;
+     inputs: bit-equal, two runs bit-equal; with its time, the kernel
+     alone and its bound; 10b. kernel B4f (the generic route's fused
+     backward to d loss / d logits) at the cases built from logits (the
+     cell, its per-image form, `classes_to_ignore`, the untrained net;
+     B4F_CASES) in float32 and bf16 against its plain version (float32:
+     relative L2 <= 1e-6, largest difference <= 1e-5 of the largest
+     element; bf16: within one bf16 ulp of every element) and in float32
+     against the parent commit's composition (autograd through
+     `lovasz_rows` into B4; relative L2 <= 1e-5), two runs bit-equal; its
+     times at the cell, and the loss backward of one HRNetv2 step on the
+     parent's composition and on the new route in turns, with their peak
+     memory;
  11. the HRNetv2-W32 cell at full width: configs/DeepLabv3_rf_lvsz.json with
      the graph {"model": "HRNetv2", "width": 32} and the loss
      {"name": "LovaszSoftmax", "lovasz_impl": "bucket"} (task 2, 540x960
      frames padded to 544x960, batch 8, bf16, pad/flip/blur/colorjitter,
      Adam at 1e-4) on the same synthetic set: `validate` and `train_steps`
      with the launch counts read around each (one B3 per eval-loss batch
-     and per train step, one B4 per train step, none of B1/B2), one
+     and per train step, one B4f per train step, none of B4 or B1/B2), one
      batch's loss recomputed with B3's plain version, a 10-step overfit of
      one batch (pad only) whose loss falls at every step, the train step's
-     time, frames/s, peak memory and device time by kernel group;
+     time, frames/s, peak memory and device time by kernel group; 11b.
+     `train_steps` of one batch on the parent's composition and on the new
+     route in turns, their peak memory;
  12. the HRNetv2 train step on the card against the CPU as phase 8 does it
      for OCRNet, at width 8 (a reduction of width for the CPU's sake), with
      the pairs whose bucket differs between the two sides counted (see
@@ -164,6 +177,10 @@ B2_OPS_PER_HEIGHT_TAP_PAIR = 4
 # gather is a load)
 B3_OPS_PER_PAIR = 4
 B4_OPS_PER_PAIR = 1
+# B4f per (pixel, class row) pair: the bucket id's multiply, 5 for the
+# softmax (max, subtract, exp, sum, divide), 1 for the sign of the gathered
+# dE and 4 for the softmax VJP (dp * p, its sum, dp - s, times p)
+B4F_OPS_PER_PAIR = 1 + 5 + 1 + 4
 
 
 def b2_ops(pairs: int, ws: int, w_pad: int) -> float:
@@ -552,7 +569,8 @@ _GROUPS = (("P1/P2 fused_upsample", ("fused_upsample",)),
            ("B1 fu_hist", ("fu_hist",)),
            ("B2 fu_grad", ("fu_grad",)),
            ("B3 bucket_hist", ("bucket_hist",)),
-           ("B4 bucket_grad", ("bucket_grad",)),
+           ("B4 bucket_grad", ("bucket_gather",)),
+           ("B4f bucket_dlogits", ("bucket_dlogits",)),
            ("B5/B7 nchw_hist", ("nchw_hist",)),
            ("B6/B8 nchw_grad", ("nchw_grad",)),
            ("copies", ("memcpy", "memset")),
@@ -979,6 +997,29 @@ B3_CELL = (8, 544, 960)
 B3_ROWS = {"r1": (1, 100_003), "p_odd": (17, 123_457), "other": (17, 500_000)}
 
 
+# the phase-9 cases built from logits, which phase 10 also runs B4f on
+B4F_CASES = ("cell", "per_image_136", "classes_to_ignore", "init")
+
+
+def logits_case(name, dev):
+    """(float32 logits (N, 17, H, W), labels (N, H, W), classes_to_ignore,
+    per_image) of one B4F_CASES case: seeded 3 x randn logits and blocky
+    labels at the cell's shape, its per-image form and a
+    `classes_to_ignore` case at half the height and width; 0.1 x randn
+    logits ("init": the near-uniform softmax of an untrained net)."""
+    seed = sum(map(ord, name))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    n, h, w = B3_CELL
+    if name == "classes_to_ignore":
+        n, h, w = 2, h // 2, w // 2
+    std = 0.1 if name == "init" else 3.0
+    logits = std * torch.randn((n, 17, h, w), generator=gen, device=dev)
+    labels = torch.as_tensor(blocky_labels(rng, n, h, w, 18, 8), device=dev)
+    return (logits, labels, 17 if name == "classes_to_ignore" else None,
+            name == "per_image_136")
+
+
 def b3_inputs(name, dev):
     """(errors (R, P) float32, fg (R, P) bool) of one phase-9 case: the
     rows of `lovasz_rows` from seeded logits (3 x randn) and blocky labels
@@ -993,19 +1034,12 @@ def b3_inputs(name, dev):
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
         lovasz_rows)
 
+    if name in B4F_CASES:
+        logits, labels, ignore, per_image = logits_case(name, dev)
+        e, fg, _ = lovasz_rows(logits, labels, ignore, per_image=per_image)
+        return e.contiguous(), fg.contiguous()
     seed = sum(map(ord, name))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    rng = np.random.default_rng(seed)
-    if name in ("cell", "per_image_136", "classes_to_ignore", "init"):
-        n, h, w = B3_CELL
-        if name == "classes_to_ignore":
-            n, h, w = 2, h // 2, w // 2
-        std = 0.1 if name == "init" else 3.0
-        logits = std * torch.randn((n, 17, h, w), generator=gen, device=dev)
-        labels = torch.as_tensor(blocky_labels(rng, n, h, w, 18, 8), device=dev)
-        e, fg, _ = lovasz_rows(logits, labels, 17 if name == "classes_to_ignore"
-                               else None, per_image=name == "per_image_136")
-        return e.contiguous(), fg.contiguous()
     r_rows, p = B3_ROWS.get(name, B3_ROWS["other"])
     u = torch.rand((r_rows, p), generator=gen, device=dev)
     if name == "zeros":
@@ -1118,11 +1152,58 @@ def check_b3(dev) -> dict:
     return record
 
 
-def check_b4(dev) -> dict:
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of `x` (2^-133, the smallest bf16
+    subnormal, at 0 and below the normal range)."""
+    _, exp = torch.frexp(x.float())
+    return torch.where(x == 0, 2.0 ** -133, torch.exp2((exp - 8).clamp_min(-133).float()))
+
+
+def loss_cotangent(present: torch.Tensor, n: int, per_image: bool) -> torch.Tensor:
+    """d loss / d per_row of `lovasz_softmax` at its defaults: the mean over
+    the present classes (of each image, then over the images, per image)."""
+    pr = present.reshape(n if per_image else 1, -1)
+    return (pr / pr.sum(1, keepdim=True).clamp_min(1.0) / pr.shape[0]).reshape(-1)
+
+
+def parent_lovasz_softmax(logits, labels, classes_to_consider=None,
+                          classes_to_ignore=None, per_image=False, impl="bucket"):
+    """`lovasz_softmax(impl="bucket")` as the parent commit computes it:
+    autograd through `lovasz_rows` (softmax, |fg - p|, the transpose), then
+    B3 and B4 behind `bucket_lovasz_per_class`. Phase 10 times its backward
+    beside the new route's; phase 11 reads HRNetv2's peak memory with it."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        bucket_lovasz_per_class)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        _mean_over, lovasz_rows)
+
+    if impl != "bucket":
+        raise ValueError("the parent's composition is the generic bucket route's")
+    n, c = logits.shape[:2]
+    if classes_to_consider in (None, "present", "all"):
+        class_mask = torch.ones(c, device=logits.device)
+    else:
+        class_mask = torch.zeros(c, device=logits.device)
+        class_mask[torch.as_tensor(classes_to_consider, dtype=torch.long)] = 1.0
+    errors_t, fg_t, present = lovasz_rows(logits, labels, classes_to_ignore, per_image)
+    per_class = bucket_lovasz_per_class(errors_t, fg_t)
+    rows = n if per_image else 1
+    weight = class_mask.repeat(rows)
+    if classes_to_consider != "all":
+        weight = weight * present
+    return _mean_over(per_class.reshape(rows, c), weight.reshape(rows, c)).mean()
+
+
+def check_b4(dev) -> tuple[dict, dict]:
+    """B4 bit-equal to its plain version at every B3_CASES shape, two runs
+    bit-equal; its time at the cell (the call, CUDA events; the kernel
+    alone, profiler)."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
         bucket_gather, bucket_gather_plain, bucket_histogram)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
         grad_table, losses_and_tables)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.fu_grad_ablation import (
+        device_ms)
 
     record = None
     for name in B3_CASES:
@@ -1143,12 +1224,153 @@ def check_b4(dev) -> dict:
         if name == "cell":
             kernel_ms = cuda_ms(lambda: bucket_gather(e, fg, table))
             plain_ms = cuda_ms(lambda: bucket_gather_plain(e, fg, table), reps=5)
+            alone = device_ms(lambda: bucket_gather(e, fg, table),
+                              kernel="bucket_gather_kernel")
+            print(f"B4 cell: the kernel alone {alone!r} ms (profiler, median of 20), "
+                  f"{alone / kernel_ms!r} of the call's {kernel_ms!r} ms", flush=True)
             n_bytes = 4 * e.numel() + fg.numel() + 4 * table.numel() + 4 * got.numel()
             record = _record(bucket_gather, float((got - ref).abs().max()),
                              kernel_ms, plain_ms, n_bytes,
                              B4_OPS_PER_PAIR * e.numel(), "B4 cell")
         del e, fg, got, again, ref
     return record
+
+
+def check_b4f(dev) -> dict:
+    """B4f at every B4F_CASES case in float32 and bf16 against its plain
+    version (float32: relative L2 <= 1e-6 and largest difference <= 1e-5 of
+    the largest element; bf16: every element within one bf16 ulp of the
+    plain result) and in float32 against the parent's composition (autograd
+    through `lovasz_rows` into B4; relative L2 <= 1e-5), two runs
+    bit-equal, the table from the loss's cotangent on a B3 forward of the
+    same inputs; at the cell its time in both types (the call, CUDA events;
+    the kernel alone, profiler) and the loss backward of one HRNetv2 step
+    (`torch.autograd.grad` from the loss to the bf16 logits) on the parent's
+    composition and on the new route, in turns, with each route's peak
+    memory over the loss's forward and backward."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        bucket_dlogits, bucket_dlogits_plain, bucket_histogram)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        bucket_lovasz_per_class, grad_table, losses_and_tables)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_rows)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.fu_grad_ablation import (
+        device_ms)
+
+    record, failed = None, []
+    for name in B4F_CASES:
+        logits32, labels, ignore, per_image = logits_case(name, dev)
+        n = logits32.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = logits32.to(dtype)
+            e, fg, present = lovasz_rows(logits, labels, ignore, per_image)
+            e, fg = e.contiguous(), fg.contiguous()
+            _, _, g_fg, g_bg = losses_and_tables(bucket_histogram(e, fg))
+            ct = loss_cotangent(present, n, per_image)
+            table = grad_table(g_fg, g_bg, ct)
+            got = bucket_dlogits(e, fg, table, logits, per_image=per_image)
+            again = bucket_dlogits(e, fg, table, logits, per_image=per_image)
+            ref = bucket_dlogits_plain(e, fg, table, logits, per_image)
+            torch.cuda.synchronize()
+            repeat = torch.equal(got, again)
+            diff = (got.float() - ref.float()).abs()
+            max_abs, top = float(diff.max()), float(ref.float().abs().max())
+            what = f"B4f {name} ({dtype}, per_image={per_image})"
+            if dtype == torch.float32:
+                rel = rel_l2(got, ref)
+                x = logits.detach().requires_grad_(True)
+                e_a, fg_a, _ = lovasz_rows(x, labels, ignore, per_image)
+                (parent,) = torch.autograd.grad(
+                    (bucket_lovasz_per_class(e_a, fg_a) * ct).sum(), x)
+                rel_parent = rel_l2(got, parent)
+                print(f"{what}: relative L2 to plain {rel!r}, max abs {max_abs!r} "
+                      f"(largest element {top!r}); relative L2 to the parent's "
+                      f"composition {rel_parent!r}; two_runs_bit_equal={repeat}",
+                      flush=True)
+                ok = rel <= 1e-6 and max_abs <= 1e-5 * top and rel_parent <= 1e-5
+                del x, e_a, fg_a, parent
+            else:
+                ulps = float((diff / bf16_ulp(ref)).max())
+                n_off = int((got != ref).sum())
+                print(f"{what}: largest difference from plain {ulps!r} bf16 ulps "
+                      f"({n_off} of {got.numel()} elements differ), max abs "
+                      f"{max_abs!r}; two_runs_bit_equal={repeat}", flush=True)
+                ok = ulps <= 1.0
+            if not (ok and repeat):
+                failed.append(what)
+            if name == "cell":
+                def fn():
+                    return bucket_dlogits(e, fg, table, logits, per_image=per_image)
+                kernel_ms = cuda_ms(fn)
+                plain_ms = cuda_ms(
+                    lambda: bucket_dlogits_plain(e, fg, table, logits, per_image), reps=5)
+                alone = device_ms(fn, kernel="bucket_dlogits_kernel")
+                print(f"{what}: the kernel alone {alone!r} ms (profiler, median of 20), "
+                      f"{alone / kernel_ms!r} of the call's {kernel_ms!r} ms", flush=True)
+                size = logits.element_size()
+                n_bytes = ((4 + 1 + 2 * size) * e.numel() + 4 * table.numel())
+                line = _record(bucket_dlogits, max_abs, kernel_ms, plain_ms, n_bytes,
+                               B4F_OPS_PER_PAIR * e.numel(), what)
+                if dtype == torch.bfloat16:
+                    record = line
+            del logits, e, fg, got, again, ref, diff
+    if failed:
+        raise AssertionError(f"B4f disagrees: {failed}")
+    loss_backward(dev)
+    return record
+
+
+def loss_backward(dev) -> None:
+    """The loss backward of one HRNetv2 step at the cell's shape, bf16
+    logits: `torch.autograd.grad` from the loss to the logits on the
+    parent's composition and on the new route (retained graphs), timed in
+    turns (parent, new, new, parent; CUDA events, median of 20, the host
+    included; and the device's work alone, `queued_ms`), their gradients
+    compared, and each route's peak memory over the loss's forward and
+    backward."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_softmax)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.fu_grad_ablation import (
+        queued_ms)
+
+    logits32, labels, _, _ = logits_case("cell", dev)
+    x = logits32.to(torch.bfloat16).requires_grad_(True)
+    del logits32
+    routes = {"parent": parent_lovasz_softmax,
+              "new": lambda lg, lb: lovasz_softmax(lg, lb, impl="bucket")}
+    losses, grads, peaks, launches = {}, {}, {}, {}
+    for name, route in routes.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses[name] = route(x, labels)
+        (grads[name],) = torch.autograd.grad(losses[name], x, retain_graph=True)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        launches[name] = {k: v for k, v in launch_counts().items() if v}
+    times, device = {}, {}
+    for name in ("parent", "new", "new", "parent"):
+        def backward():
+            return torch.autograd.grad(losses[name], x, retain_graph=True)
+        times.setdefault(name, []).append(cuda_ms(backward))
+        device.setdefault(name, []).append(queued_ms(backward))
+    rel = rel_l2(grads["new"], grads["parent"])
+    print(f"HRNetv2 loss backward at the cell (bf16 logits 8x17x544x960; ms, "
+          f"CUDA events, median of 20, two turns): {json.dumps(times)}; its device "
+          f"work (CUDA events over calls queued behind a spin, the host hidden): "
+          f"{json.dumps(device)}; losses "
+          f"{losses['parent'].item()!r} (parent) and {losses['new'].item()!r} (new); "
+          f"gradients {int((grads['new'] != grads['parent']).sum())} of "
+          f"{x.numel()} elements apart, relative L2 {rel!r}; peak memory over the "
+          f"loss's forward and backward above the logits (bytes): "
+          f"{json.dumps(peaks)}; launches {json.dumps(launches)}", flush=True)
+    # the two gradients are two float32 VJPs apart (held to 1e-5 above in
+    # float32), each rounded to bf16 once: within a bf16 rounding, 2^-8
+    if losses["parent"].item() != losses["new"].item() or rel > 2.0 ** -8:
+        raise AssertionError("the new route's loss or gradient disagrees with the parent's")
 
 
 # ---------------------------------------------------------------------------
@@ -1303,6 +1525,40 @@ def hrnet_batch_check(model, images, labels, eval_step, spec) -> None:
           f"plain B3 {loss_p!r}, exact sort {loss_sort!r}", flush=True)
     if loss_k != loss_p or abs(loss_k - float(step_loss)) > 1e-6:
         raise AssertionError("HRNetv2 batch loss: kernel, plain and step disagree")
+
+
+def hrnet_route_memory(dev, cfg, n_frames: int = 8) -> None:
+    """HRNetv2's peak memory and step time through `train_steps` of one
+    full batch on the parent's composition of the generic bucket route
+    (`parent_lovasz_softmax`, put in place of `lovasz_softmax` while the
+    loss is built) and on the new route, in turns (new, parent, parent,
+    new), each from a copy of one seed-0 model."""
+    import copy
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import functional
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
+
+    images, labels = synthetic_set(n_frames)
+    model = build_model(cfg["graph"], int(cfg["data"]["experiment"]), device=dev, seed=0)
+    new_route = functional.lovasz_softmax
+    peaks, seconds = {}, {}
+    for name in ("new", "parent", "parent", "new"):
+        functional.lovasz_softmax = new_route if name == "new" else parent_lovasz_softmax
+        try:
+            run = copy.deepcopy(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = train_steps(run, cfg, images, labels, [np.arange(n_frames)], device=dev)
+            torch.cuda.synchronize()
+        finally:
+            functional.lovasz_softmax = new_route
+        peaks.setdefault(name, []).append(torch.cuda.max_memory_allocated())
+        seconds.setdefault(name, []).append(res["seconds"])
+        del run, res
+    print(f"HRNetv2 train_steps of one batch of {n_frames} on each route, in turns: "
+          f"peak memory (bytes) {json.dumps(peaks)}; seconds {json.dumps(seconds)}",
+          flush=True)
 
 
 def deeplab_batch_check(model, images, labels, eval_step, spec) -> None:
@@ -1908,13 +2164,16 @@ def main() -> int:
     b1["launches"], b2["launches"] = launches["fu_hist"], launches["fu_grad"]
     b3 = phase(9, check_b3, dev)
     b4 = phase(10, check_b4, dev)
+    b4f = phase("10b", check_b4f, dev)
     hr_launches = phase(11, run_cell, dev, hrnet_config(), "HRNetv2",
                         {"eval": {"bucket_hist": 1},
-                         "train": {"bucket_hist": 1, "bucket_grad": 1}},
+                         "train": {"bucket_hist": 1, "bucket_dlogits": 1}},
                         hrnet_batch_check)
+    phase("11b", hrnet_route_memory, dev, hrnet_config())
     phase(12, train_card_vs_cpu, dev, hrnet_config(width=8), "HRNetv2-W8")
     b3["launches"] = hr_launches["bucket_hist"]
     b4["launches"] = hr_launches["bucket_grad"]
+    b4f["launches"] = hr_launches["bucket_dlogits"]
     nchw = phase(13, phase13_nchw, dev)
     dl_launches = phase(14, run_cell, dev, deeplab_config(), "DeepLabv3",
                         {"eval": {"fu_hist": 1}, "train": {"fu_hist": 1, "fu_grad": 1}},
@@ -1934,18 +2193,20 @@ def main() -> int:
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
-          "B5 nchw_hist, B6 nchw_grad, B7 nchw1_hist, B8 nchw1_grad, P1 "
-          "fused_upsample and P2 fused_downsample: ported (CUDA C++, sm_90a); "
-          "launches counted over train_steps (B1/B2: OCRNet "
+          "B4f bucket_dlogits, B5 nchw_hist, B6 nchw_grad, B7 nchw1_hist, B8 "
+          "nchw1_grad, P1 fused_upsample and P2 fused_downsample: ported (CUDA "
+          "C++, sm_90a); launches counted over train_steps (B1/B2: OCRNet "
           f"{launches['fu_hist']}/{launches['fu_grad']}, DeepLabv3 "
           f"{dl_launches['fu_hist']}/{dl_launches['fu_grad']} and UPerNet "
-          f"{upn_launches['fu_hist']}/{upn_launches['fu_grad']}, B3/B4: HRNetv2, "
+          f"{upn_launches['fu_hist']}/{upn_launches['fu_grad']}, B3/B4/B4f: "
+          "HRNetv2, whose backward runs B4f and not B4 (B4 stays behind the "
+          "per-row `bucket_lovasz_per_class`), "
           "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route) "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "
           "per timed call; 0 on every model step of phases 5-18)")
-    print(json.dumps({"kernels": [b1, b2, b3, b4] + [
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b4f] + [
         nchw[k] for k in ("nchw_hist", "nchw_grad", "nchw1_hist", "nchw1_grad")]
         + [protos["fused_upsample"], protos["fused_downsample"]]}))
     print(nvidia_smi())

@@ -7,7 +7,7 @@ P1/P2's wrappers stay in their module, `kernels.fused_upsample`, which a
 wrapper of the same name would otherwise shadow on this package.
 """
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_grad import (  # noqa: F401
-    bucket_gather, bucket_gather_plain)
+    bucket_dlogits, bucket_dlogits_plain, bucket_gather, bucket_gather_plain)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import (  # noqa: F401
     bucket_histogram, bucket_histogram_plain)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import fused_upsample as _p12
@@ -20,10 +20,10 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.nchw_grad impor
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.nchw_hist import (  # noqa: F401
     nchw1_histogram, nchw_histogram, nchw_histogram_plain)
 
-# B1, B2, B3, B4, B5, B6, B7, B8, P1, P2
+# B1, B2, B3, B4, B4f, B5, B6, B7, B8, P1, P2
 KERNELS = {k.name: k for k in (fu_histogram, fu_grad, bucket_histogram,
-                               bucket_gather, nchw_histogram, nchw_gradient,
-                               nchw1_histogram, nchw1_gradient,
+                               bucket_gather, bucket_dlogits, nchw_histogram,
+                               nchw_gradient, nchw1_histogram, nchw1_gradient,
                                _p12.fused_upsample, _p12.fused_downsample)}
 
 

@@ -8,10 +8,12 @@ bf16-rounded errors (not bucket midpoints, as on the fused route). The
 bucket count is fixed at 2048 here, whatever a config's `lovasz_buckets`
 says, as on the JAX route.
 
-The histogram is kernel B3 (kernels/bucket_hist.py) and the backward
-kernel B4 (kernels/bucket_grad.py): CUDA on the card, their plain PyTorch
-versions on the CPU. `losses_and_tables` and `grad_table` are shared with
-the fused route (losses/fused_lovasz.py).
+The histogram is kernel B3 (kernels/bucket_hist.py) and the backward of
+the per-row function kernel B4 (kernels/bucket_grad.py): CUDA on the card,
+their plain PyTorch versions on the CPU. `losses_and_tables` and
+`grad_table` are shared with the fused route (losses/fused_lovasz.py) and
+with the Lovász-Softmax route on logits (losses/functional.py), whose
+backward is kernel B4f.
 """
 from __future__ import annotations
 

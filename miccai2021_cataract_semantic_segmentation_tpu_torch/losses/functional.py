@@ -17,14 +17,23 @@ Two per-row functions (R, P) -> (R,):
     JAX custom VJP). The sort is `torch.sort`, as the JAX package leaves
     its sort to `lax.sort`.
   * "bucket": the 2048-bucket histogram of losses/bucket_lovasz.py
-    (kernels B3 forward, B4 backward).
+    (kernel B3 forward). `lovasz_softmax` and `fused_two_scale_lovasz`
+    take it straight from the logits (`_BucketFromLogits`): the errors are
+    built without autograd, and the backward is kernel B4f, which writes
+    d loss / d logits from the saved errors and flags in one pass; the
+    per-row function `bucket_lovasz_per_class` keeps kernel B4 (the
+    gather of d loss / d errors) behind the JAX package's custom VJP.
 """
 from __future__ import annotations
 
 import torch
 
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_grad import (
+    bucket_dlogits)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist import (
+    bucket_histogram)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
-    bucket_lovasz_per_class)
+    bucket_lovasz_per_class, grad_table, losses_and_tables)
 
 
 def lovasz_grad_from_sorted(fg_sorted: torch.Tensor) -> torch.Tensor:
@@ -111,6 +120,56 @@ def lovasz_rows(logits: torch.Tensor, labels: torch.Tensor,
             present.reshape(-1))
 
 
+def _dlogits(errors_t, fg_t, table, logits, per_image: bool) -> torch.Tensor:
+    """B4f on one scale's rows. Logits of another type than bf16 or
+    float32 (the float64 of the parity steps) go through B4f as float32,
+    which is what `lovasz_rows` computes in, and come back in their type."""
+    x = logits if logits.dtype in (torch.bfloat16, torch.float32) else logits.float()
+    return bucket_dlogits(errors_t, fg_t, table, x.contiguous(),
+                          per_image=per_image).to(logits.dtype)
+
+
+class _BucketFromLogits(torch.autograd.Function):
+    """The generic bucket route from the logits of one or more scales, their
+    class rows stacked into one B3 launch: (per_row (R,), then each scale's
+    presence). The forward builds the rows with `lovasz_rows` (no
+    autograd), counts them (B3) and keeps the bucket gradients; the
+    backward scales the table by the cotangent and runs B4f once per scale
+    on its rows. It saves the logits, the errors, the flags and the bucket
+    gradients, not the probabilities and fg - p that autograd through
+    `lovasz_rows` keeps."""
+
+    @staticmethod
+    def forward(ctx, labels, classes_to_ignore, per_image, *logits):
+        rows = [lovasz_rows(lg, labels, classes_to_ignore, per_image) for lg in logits]
+        if len(rows) == 1:      # no copy
+            errors_t, fg_t = rows[0][0].contiguous(), rows[0][1].contiguous()
+        else:
+            errors_t = torch.cat([r[0] for r in rows])
+            fg_t = torch.cat([r[1] for r in rows])
+        per_row, _, g_fg, g_bg = losses_and_tables(bucket_histogram(errors_t, fg_t))
+        ctx.per_image = per_image
+        ctx.save_for_backward(errors_t, fg_t, g_fg, g_bg, *logits)
+        presents = [r[2] for r in rows]
+        ctx.mark_non_differentiable(*presents)
+        ctx.set_materialize_grads(False)    # no zeros for the presences
+        return (per_row, *presents)
+
+    @staticmethod
+    def backward(ctx, ct, *_):
+        errors_t, fg_t, g_fg, g_bg, *logits = ctx.saved_tensors
+        if ct is None:
+            return (None,) * (3 + len(logits))
+        table = grad_table(g_fg, g_bg, ct)
+        grads, r0 = [], 0
+        for lg in logits:
+            r1 = r0 + lg.shape[1] * (lg.shape[0] if ctx.per_image else 1)
+            grads.append(_dlogits(errors_t[r0:r1], fg_t[r0:r1], table[r0:r1], lg,
+                                  ctx.per_image))
+            r0 = r1
+        return (None, None, None, *grads)
+
+
 def _mean_over(per_class, weight):
     return torch.sum(per_class * weight, dim=-1) / torch.clamp_min(
         torch.sum(weight, dim=-1), 1.0)
@@ -137,9 +196,13 @@ def lovasz_softmax(logits: torch.Tensor, labels: torch.Tensor,
     else:
         class_mask = torch.zeros(c, device=logits.device)
         class_mask[torch.as_tensor(classes_to_consider, dtype=torch.long)] = 1.0
-    errors_t, fg_t, present = lovasz_rows(logits, labels, classes_to_ignore,
-                                          per_image)
-    per_class = fn(errors_t, fg_t)
+    if impl == "bucket":
+        per_class, present = _BucketFromLogits.apply(labels, classes_to_ignore,
+                                                     per_image, logits)
+    else:
+        errors_t, fg_t, present = lovasz_rows(logits, labels, classes_to_ignore,
+                                              per_image)
+        per_class = fn(errors_t, fg_t)
     rows = n if per_image else 1
     weight = class_mask.repeat(rows)
     if classes_to_consider != "all":
@@ -154,12 +217,17 @@ def fused_two_scale_lovasz(interm_logits: torch.Tensor,
                            classes_to_ignore: int | None = None,
                            impl: str = "sort") -> torch.Tensor:
     """TwoScaleLoss(Lovász, Lovász) at label resolution with both scales'
-    class rows stacked into ONE (2C, P) call of the per-row function."""
+    class rows stacked into ONE (2C, P) call of the per-row function (on
+    the bucket route one B3 launch, and one B4f per scale backward)."""
     c = final_logits.shape[1]
-    e_i, f_i, pr_i = lovasz_rows(interm_logits, labels, classes_to_ignore)
-    e_f, f_f, pr_f = lovasz_rows(final_logits, labels, classes_to_ignore)
-    per_class = per_class_fn(impl)(torch.cat([e_i, e_f], dim=0),
-                                   torch.cat([f_i, f_f], dim=0))
+    fn = per_class_fn(impl)
+    if impl == "bucket":
+        per_class, pr_i, pr_f = _BucketFromLogits.apply(
+            labels, classes_to_ignore, False, interm_logits, final_logits)
+    else:
+        e_i, f_i, pr_i = lovasz_rows(interm_logits, labels, classes_to_ignore)
+        e_f, f_f, pr_f = lovasz_rows(final_logits, labels, classes_to_ignore)
+        per_class = fn(torch.cat([e_i, e_f], dim=0), torch.cat([f_i, f_f], dim=0))
     loss_i = _mean_over(per_class[:c], pr_i)
     loss_f = _mean_over(per_class[c:], pr_f)
     return w_interm * loss_i + w_final * loss_f

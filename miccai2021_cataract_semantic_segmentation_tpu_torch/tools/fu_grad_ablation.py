@@ -301,7 +301,8 @@ def device_ms(fn, reps: int = 20, kernel: str = "fu_grad") -> float:
     stall of the card inflates one queued reading, not the least): on the
     H100 the profiler now and then reports most of a session's kernels
     several times shorter than they run (B8's 0.0617 ms beside 0.39 by
-    CUDA events). Such a session is printed and profiled again, up to
+    CUDA events), and now and then it records none of a session's kernel
+    launches. Such a session is printed and profiled again, up to
     PROFILE_TRIES times."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -315,19 +316,24 @@ def device_ms(fn, reps: int = 20, kernel: str = "fu_grad") -> float:
                 fn()
             torch.cuda.synchronize()
         times: dict = {}
+        n_device = 0
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA and kernel in ev.name:
-                times.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+            if ev.device_type == DeviceType.CUDA:
+                n_device += 1
+                if kernel in ev.name:
+                    times.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
         if not times or min(map(len, times.values())) < reps // 2:
-            raise RuntimeError(f"the profile holds too few {kernel} launches: "
-                               f"{ {k: len(v) for k, v in times.items()} }")
+            print(f"device_ms: a profile holds too few {kernel} launches "
+                  f"({ {k: len(v) for k, v in times.items()} }, {n_device} device "
+                  f"events in all)", flush=True)
+            continue
         got = sum(statistics.median(v) for v in times.values()) / 1e3
         if 0.85 * queued <= got <= 1.10 * queued:
             return got
         print(f"device_ms: a profile of {kernel} read {got!r} ms against {queued!r} ms by "
               f"CUDA events over queued calls; its launches (us): {times}", flush=True)
     raise RuntimeError(f"{PROFILE_TRIES} profiles of {kernel} disagree with CUDA events "
-                       f"({queued!r} ms)")
+                       f"({queued!r} ms) or hold too few of its launches")
 
 
 def variant_layout(c: int, nb: int, columns: tuple, layout_kw: dict):
