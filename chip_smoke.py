@@ -131,7 +131,24 @@ Phases (any failure raises and the run exits non-zero):
      B2 per step, none of the others; one batch's loss against B1's plain
      version, the overfit, the step's time and profile;
  19. the UPerNet train step on the card against the CPU, as phase 8, its
-     float32 gradients held as F32_LOSS_GRAD_TOL says.
+     float32 gradients held as F32_LOSS_GRAD_TOL says;
+ 20. the served path from PNGs on disk: the synthetic set written as a
+     CaDIS tree (tools/synthetic_tree.py: the port's PNG encoder, every
+     filter type, canonical label ids, data.csv) under split 2's test
+     videos beside frames of training videos that inference leaves out;
+     configs/OCRNet_pretrained_t{1,2,3}.json through the port's CLI, one
+     process each, from a seed-0 OCRNet-R50 saved in the reference's
+     `<run>/chkpts/chkpt_best.pt` layout (only data_path, log_path and
+     load_checkpoint changed): every class pixel counted, t2's confusion
+     matrix equal to `validate`'s on the arrays; `infer`'s frames/s at
+     valid batch 1 and 8 (and at 8 with 8 reader threads), and its parts
+     at both (without the triptych images, also from memory, the eval
+     step alone); the flagship's `Trainer.validate(0)` (the config
+     in inference mode, so its validation set is those test videos) with
+     one B1 a full batch and none of the others, its loss and matrix equal
+     to `validate`'s on the same frames and weights; the decoder that ran
+     and each decoder's ms per frame, and the numpy and C++ PNG unfilters'
+     ms on one frame.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -141,6 +158,7 @@ from __future__ import annotations
 
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -2118,6 +2136,203 @@ def upernet_batch_check(model, images, labels, eval_step, spec) -> None:
         raise AssertionError("UPerNet batch loss: kernel, plain and step disagree")
 
 
+PRETRAINED = ("OCRNet_pretrained_t1.json", "OCRNet_pretrained_t2.json",
+              "OCRNet_pretrained_t3.json")
+TEST_VIDEOS = (2, 12, 22)           # split 2's test videos
+LEFT_OUT = (1, 3, 4)                # training videos, which inference leaves out
+
+
+def counted_pixels(canonical: np.ndarray, task: int) -> int:
+    """Pixels of padded frames whose `task` label is a class (not ignore)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.remap import remap_mask_np
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.taxonomy import TASK_NUM_CLASSES
+
+    lbl = torch.as_tensor(remap_mask_np(canonical, task))
+    return int((pad_reflect_hw(lbl) < TASK_NUM_CLASSES[task]).sum())
+
+
+def decode_timings(root) -> dict:
+    """ms per frame of the decoders on the tree's test frames (image and
+    label), and of the two PNG unfilters on one RGB frame, every row type."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import (
+        SegDataset, load_frame_table, native_io, png, split_dataframes)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.png import filter_rows
+
+    valid = split_dataframes(load_frame_table(data_path=str(root)), 2, "inference")[1]
+    ds = SegDataset(valid, 2, str(root))
+    out = {}
+    t = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    out["png_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / len(ds)
+    if native_io.available():
+        t = time.perf_counter()
+        for k in range(0, len(ds), 8):
+            ds.load_batch(list(range(k, min(k + 8, len(ds)))))
+        out["native_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / len(ds)
+    frame = ds[0][0]
+    rows = filter_rows(frame, np.arange(frame.shape[0]) % 5)
+    for name, fn in (("numpy", png.unfilter_plain), ("cpp", png.unfilter_native)):
+        t = time.perf_counter()
+        for _ in range(3):
+            fn(rows, 3)
+        out[f"unfilter_{name}_ms"] = (time.perf_counter() - t) * 1e3 / 3
+    return out
+
+
+def phase20_served(dev) -> None:
+    """The served path from PNGs on disk: a synthetic CaDIS tree, the three
+    published inference configs through the port's CLI, the flagship's
+    `Trainer.validate(0)`, the decoders' times and `infer`'s frames/s."""
+    import shutil
+    import tempfile
+
+    import importlib.util
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import (
+        DECODED, ArrayDataset, native_io, png, reset_decoded)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+        canonical_from_network, write_tree)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import parse_config
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
+
+    images, labels = synthetic_set()
+    n = len(images)
+    canon = canonical_from_network(labels, 2)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_served_"))
+    data, logs = tmp / "data", tmp / "logs"
+    try:
+        t = time.perf_counter()
+        write_tree(data, np.concatenate([images, images[:len(LEFT_OUT)]]),
+                   np.concatenate([canon, canon[:len(LEFT_OUT)]]),
+                   [TEST_VIDEOS[i % 3] for i in range(n)] + list(LEFT_OUT))
+        # build the host libraries once, before the CLI's processes start;
+        # the PNG path's C++ unfilter raises where it does not build
+        native_ok = native_io.available()
+        png.unfilter_lib()
+        print(f"served tree: {n} test frames + {len(LEFT_OUT)} left out, written "
+              f"in {time.perf_counter() - t!r} s; native decoder built: {native_ok} "
+              f"({native_io.build_error()}); C++ unfilter built; "
+              "installed here: " + ", ".join(
+                  m for m in ("pandas", "cv2", "PIL", "matplotlib", "tensorboard")
+                  if importlib.util.find_spec(m) is not None), flush=True)
+
+        # (a) the published inference configs through the CLI, one process each
+        models, infos = {}, {}
+        for name in PRETRAINED:
+            cfg = json.loads((pathlib.Path(ROOT) / "configs" / name).read_text())
+            task = int(cfg["data"]["experiment"])
+            run = f"published_t{task}"
+            models[task] = build_model(cfg["graph"], task, device=dev, seed=0)
+            save_checkpoint(logs / run / "chkpts", "best", models[task], 0, 0.0, 0.0)
+            cfg.update(data_path=str(data), log_path=str(logs), load_checkpoint=run)
+            cfg_path = tmp / name
+            cfg_path.write_text(json.dumps(cfg))
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "miccai2021_cataract_semantic_segmentation_tpu_torch.main",
+                 "-c", str(cfg_path), "-dp", str(data)],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI on {name} exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            (found,) = logs.glob(f"*_e{task}__{cfg['name']}/info.json")
+            m = infos[task] = json.loads(found.read_text())["metrics"]
+            cm = np.asarray(m["confusion_matrix"], np.int64)
+            print(f"CLI {name}: {seconds!r} s wall (process included); " + json.dumps(
+                {k: m[k] for k in ("miou", "pa", "pac", "frames_per_sec", "decoded",
+                                   "valid_batch_size", "device")}), flush=True)
+            expected = counted_pixels(canon, task)
+            if int(cm.sum()) != expected or not np.isfinite(m["miou"]) or \
+                    sum(m["decoded"].values()) != -(-n // m["valid_batch_size"]):
+                raise AssertionError(f"CLI {name}: {int(cm.sum())} pixels counted of "
+                                     f"{expected}, decoded {m['decoded']}")
+        cfg2 = json.loads((tmp / PRETRAINED[1]).read_text())
+        ref = validate(models[2], cfg2, images, labels, device=dev, batch_size=8)
+        if not np.array_equal(ref["confusion_matrix"],
+                              np.asarray(infos[2]["confusion_matrix"])):
+            diff = int(np.abs(ref["confusion_matrix"]
+                              - np.asarray(infos[2]["confusion_matrix"])).sum())
+            raise AssertionError(f"t2's CLI matrix differs from validate's in {diff}")
+        print(f"CLI t2's confusion matrix equals validate's on the arrays "
+              f"({int(ref['confusion_matrix'].sum())} pixels)", flush=True)
+
+        # infer's frames/s at the pretrained configs' batch size (1) and at 8
+        for bs in (1, 8):
+            tcfg = dict(parse_config(str(tmp / PRETRAINED[1])), valid_batch_size=bs,
+                        run_id=f"infer_bs{bs}")
+            trainer = Trainer(tcfg, device=dev)
+            trainer.load_checkpoint("best", run_id="published_t2")
+            res = trainer.infer()
+            trainer.close()
+            print(f"infer t2 at valid batch {bs}: {res['frames_per_sec']!r} "
+                  f"frames/s (host clock, one warm-up batch excluded; decoded "
+                  f"{res['decoded']})", flush=True)
+
+        # where infer's time goes: without the triptych images, then also
+        # from memory (no decode), then the eval step alone on the card
+        arrays = ArrayDataset(images, labels)
+        for bs in (8, 1):
+            base = dict(parse_config(str(tmp / PRETRAINED[1])), valid_batch_size=bs,
+                        max_valid_imgs=0)
+            fps = {}
+            for what, datasets in (("no images", None),
+                                   ("from memory", (arrays, arrays, None, None))):
+                trainer = Trainer(dict(base, run_id=f"parts_bs{bs}"), datasets,
+                                  device=dev)
+                trainer.load_checkpoint("best", run_id="published_t2")
+                fps[what] = trainer.infer()["frames_per_sec"]
+                trainer.close()
+            x = torch.as_tensor(images[:bs]).to(dev)
+            y = torch.as_tensor(labels[:bs]).to(dev)
+            step_ms = cuda_ms(lambda: trainer.eval_step(trainer.model, x, y), reps=10)
+            print(f"infer t2 at valid batch {bs}, its parts: {fps['no images']!r} "
+                  f"frames/s without the triptych images, {fps['from memory']!r} "
+                  f"also from memory (no decode); the eval step alone {step_ms!r} "
+                  f"ms (CUDA events, median of 10) = {bs / step_ms * 1e3!r} frames/s",
+                  flush=True)
+
+        # (b) the flagship's Trainer.validate(0) from disk: one B1 a full batch
+        fcfg = dict(parse_config(CONFIG), data_path=str(data), log_path=str(logs),
+                    mode="inference", run_id="flagship")
+        trainer = Trainer(fcfg, device=dev)
+        reset_launches()
+        reset_decoded()
+        t = time.perf_counter()
+        got = trainer.validate(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches, decoded = launch_counts(), dict(DECODED)
+        trainer.close()
+        n_full = n // trainer.valid_batch_size
+        want = validate(trainer.model, fcfg, images, labels, device=dev,
+                        batch_size=trainer.valid_batch_size)
+        print(f"flagship Trainer.validate(0) from disk: {seconds!r} s wall; loss "
+              f"{got['valid_loss']!r} (validate on the arrays {want['valid_loss']!r}); "
+              f"miou {got['miou']!r}; launches {launches}; decoded {decoded}", flush=True)
+        if launches != dict(dict.fromkeys(KERNELS, 0), fu_hist=n_full):
+            raise AssertionError(f"launches {launches}, expected {n_full} of B1 only")
+        if got["valid_loss"] != want["valid_loss"] or not np.array_equal(
+                np.asarray(got["confusion_matrix"]), want["confusion_matrix"]):
+            raise AssertionError("Trainer.validate and validate disagree")
+
+        timing = decode_timings(data)
+        print("decoders (ms per frame, image and label; host clock): " + json.dumps(
+            timing) + f"; decoder on the served path: "
+            f"{'native' if native_ok else 'png'}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2190,6 +2405,7 @@ def main() -> int:
                          {"eval": {"fu_hist": 1}, "train": {"fu_hist": 1, "fu_grad": 1}},
                          upernet_batch_check)
     phase(19, train_card_vs_cpu, dev, upernet_config(), "UPerNet")
+    phase(20, phase20_served, dev)
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "

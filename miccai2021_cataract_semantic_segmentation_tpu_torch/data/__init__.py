@@ -1,2 +1,12 @@
-"""Host data helpers of the port (numpy only)."""
-from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import eval_batches  # noqa: F401
+"""Host data path of the port (numpy and the standard library): the frame
+table and its splits, the PNG codec, the native batch decoder, datasets,
+the transform pipeline and the batch pipeline with prefetch."""
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataframe import (  # noqa: F401
+    FrameTable, canonical_count_matrix, load_frame_table, split_dataframes,
+    task_count_matrix)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import (  # noqa: F401
+    DECODED, ArrayDataset, SegDataset, reset_decoded)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import (  # noqa: F401
+    Prefetcher, assemble_batch, epoch_iterator, eval_batches, pad_or_trim_batches)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (  # noqa: F401
+    DeviceAugmentSpec, TransformPipeline, build_transform_pipeline, device_spec)

@@ -22,6 +22,10 @@ steps). Routes of the port:
     exact sort route (the default `lovasz_impl`) or the generic bucket
     route (losses/bucket_lovasz.py, kernels B3/B4) on full-resolution
     logits;
+  * CrossEntropyLoss (also what an empty loss section means, and the
+    TwoScaleLoss's default pair): `losses/functional.py:cross_entropy` on
+    the full-resolution logits, with the task's ignore id (or
+    `ignore_index`) and the optional class `weights`;
   * the LossWrapper (`{"losses": {name: weight}}`, the EncDec configs'
     form): the weighted sum of its TwoScaleLoss and LovaszSoftmax terms,
     each routed as above with its options from `cfg.get(name, cfg)`, and
@@ -34,7 +38,7 @@ import warnings
 
 import torch
 
-from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device, taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
 
 # The loss modules import the kernels, which import this package's
@@ -111,10 +115,16 @@ def _maybe_fused_single_lovasz(cfg: dict, outputs: dict, labels, step=None):
 
 def _single_loss(name: str, cfg: dict, task: int):
     """A (logits, labels) -> scalar closure for one named loss."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        cross_entropy, lovasz_softmax)
+    if name == "CrossEntropyLoss":
+        # cfg["ignore_index"] overrides the task's ignore id
+        ign = cfg.get("ignore_index", taxonomy.ignore_index(task))
+        w = cfg.get("weights")
+        return lambda lg, lb: cross_entropy(lg, lb, ignore_index=ign,
+                                            class_weights=w)
     if name != "LovaszSoftmax":
         raise _not_ported(f"loss '{name}'", "item 11 (the remaining losses)")
-    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
-        lovasz_softmax)
     _warn_bucket_dial(cfg)
     return lambda lg, lb: lovasz_softmax(
         lg, lb,

@@ -1,7 +1,8 @@
-"""Lovász-Softmax on full-resolution logits: the exact sort route and the
-generic bucket route.
+"""Cross-entropy, and Lovász-Softmax on full-resolution logits: the exact
+sort route and the generic bucket route.
 
-Port of the Lovász section of the JAX package's losses/functional.py.
+Port of `cross_entropy` and the Lovász section of the JAX package's
+losses/functional.py.
 Logits are NCHW (the JAX package's are NHWC) and labels NHW; the class
 rows are built directly in the (C, P) layout with P ordered (n, h, w), the
 order of the JAX package's flattened NHWC pixels. Pixels of
@@ -34,6 +35,28 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels.bucket_hist imp
     bucket_histogram)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
     bucket_lovasz_per_class, grad_table, losses_and_tables)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -1, class_weights=None) -> torch.Tensor:
+    """torch.nn.CrossEntropyLoss's mean over non-ignored pixels (a
+    class-weighted mean with `class_weights`), from NCHW logits and NHW
+    labels, in float32 whatever the logits' type. Labels are clipped to
+    [0, C-1] before the gather, so a label out of range (the 255 that masks
+    padded eval rows, where `ignore_index` is not 255) counts as class C-1,
+    as the JAX package's does; `ignore_index` < 0 ignores nothing. The sum
+    is divided by max(sum of weights, 1), so an all-ignored batch gives 0."""
+    c = logits.shape[1]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=1)
+    lbl = labels.to(torch.int64)
+    safe = lbl.clamp(0, c - 1)
+    nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
+    w = (lbl != ignore_index).to(torch.float32) if ignore_index >= 0 \
+        else torch.ones_like(nll)
+    if class_weights is not None:
+        w = w * torch.as_tensor(class_weights, dtype=torch.float32,
+                                device=logits.device)[safe]
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
 def lovasz_grad_from_sorted(fg_sorted: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,66 @@
+"""CLI entry point of the port, with the reference's flags:
+
+    python -m miccai2021_cataract_semantic_segmentation_tpu_torch.main \
+        -c configs/OCRNet_pretrained_t2.json [-t 2] [-u user] [-d 0]
+        [-dp /path/to/cadis] [-bs 8] [-bl] [-rl]
+
+The command line always runs on the card: `-d N` selects cuda:N (cuda
+without it). `main(argv, device=...)` takes another device for callers
+such as the tests. Modes (config['mode']): inference (the best checkpoint
+of the run that `load_checkpoint` names, then `Trainer.infer`). Training
+and the video modes are not ported yet and raise with their ROADMAP Queue
+A items (8 and 13).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="CaDIS segmentation on the GPU")
+    p.add_argument("-c", "--config", required=True, help="run config JSON")
+    p.add_argument("-u", "--user", default=None, help="path_info.json user code")
+    p.add_argument("-d", "--device", type=int, default=-1, help="CUDA device index")
+    p.add_argument("-t", "--task", type=int, default=None,
+                   help="CaDIS task / experiment (1, 2, 3)")
+    p.add_argument("-dp", "--data_path", default=None, help="dataset root")
+    p.add_argument("-bs", "--batch_size", type=int, default=None)
+    p.add_argument("-bl", "--no_blacklist", action="store_true",
+                   help="disable blacklisting")
+    p.add_argument("-rl", "--use_relabeled", action="store_true",
+                   help="use relabelled data")
+    return p
+
+
+def main(argv=None, device=None) -> dict:
+    """Run the config's mode; returns the run's metrics."""
+    args = build_argparser().parse_args(argv)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import (
+        apply_cli_overrides, parse_config)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
+
+    config = apply_cli_overrides(parse_config(args.config, args.user, args.device),
+                                 args)
+    if device is None:
+        device = f"cuda:{args.device}" if args.device >= 0 else "cuda"
+    mode = config.get("mode", "training")
+    if mode == "training":
+        raise NotImplementedError("training through the CLI is not ported yet "
+                                  "(ROADMAP Queue A item 8)")
+    if mode in ("video_inference", "demo_video_inference"):
+        raise NotImplementedError(f"mode '{mode}' is not ported yet (ROADMAP "
+                                  "Queue A item 13)")
+    if mode != "inference":
+        raise ValueError(f"Unknown mode '{mode}'")
+    trainer = Trainer(config, device=device)
+    try:
+        if config.get("load_checkpoint"):
+            trainer.load_checkpoint("best", run_id=config["load_checkpoint"])
+        return trainer.infer()
+    finally:
+        trainer.close()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

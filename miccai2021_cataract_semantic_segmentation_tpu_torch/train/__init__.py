@@ -1,6 +1,6 @@
 """Train and eval steps, the train state, LR schedules, `train_steps`,
-batched validation, run-config reading and the flax -> torch weight
-bridge."""
+batched validation, the config system, checkpoints, loggers, the
+Trainer's served half and the flax -> torch weight bridge."""
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import (  # noqa: F401
     build_multiplier_table, make_schedule)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (  # noqa: F401
@@ -10,5 +10,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (  #
     make_train_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import (  # noqa: F401
-    load_config, with_encdec_graph)
+    DEFAULT_CONFIG_FLAT, DEFAULT_CONFIG_NESTED, apply_cli_overrides, load_config,
+    parse_config, with_encdec_graph)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate  # noqa: F401
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer  # noqa: F401

@@ -4,9 +4,9 @@
 `train_steps` builds the loss, the device spec, the LR schedule, the
 optimiser and the train step from a run config, runs the given index
 batches through the step, accumulates the confusion matrix and the loss on
-the device, and returns the epoch's train metrics. The samplers, the
-prefetcher, TensorBoard and checkpoints come with the Trainer (ROADMAP
-Queue A items 7-8).
+the device, and returns the epoch's train metrics. The samplers and
+training through the Trainer (its epoch loop, prefetch, TensorBoard and
+checkpoints) are not ported yet (ROADMAP Queue A items 7-8).
 """
 from __future__ import annotations
 

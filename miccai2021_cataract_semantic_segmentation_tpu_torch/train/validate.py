@@ -4,8 +4,9 @@ Every record contributes to the confusion matrix at any batch size: the
 tail batch is padded by repeating the last record and its padded rows are
 masked with label 255 (counted nowhere). The validation loss is averaged
 over the full batches only (the tail batch runs the eval step without the
-loss); the matrix is accumulated in int64 on the host. TensorBoard,
-checkpoints and the sampler come with the Trainer (ROADMAP Queue A item 8).
+loss); the matrix is accumulated in int64 on the host. `Trainer.validate`
+(train/trainer.py) does the same from the frames on disk, with TensorBoard,
+checkpoints and info.json.
 """
 from __future__ import annotations
 

@@ -37,7 +37,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
     KERNELS, launch_counts, reset_launches)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
-from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import lovasz_softmax
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+    cross_entropy, lovasz_softmax)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.fused_lovasz import (
     fused_bucket_lovasz_s8)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
@@ -321,7 +322,8 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     takes the fused route (it raised before that route was ported): from
     `logits_s8` with align_corners=True, else from `logits_s8_acf` with
     align_corners=False, never the generic route's different function.
-    The LossWrapper form of the same loss takes the same route; the
+    The LossWrapper form of the same loss takes the same route;
+    cross-entropy (ported since) reads the full-resolution logits; the
     losses of later slices still raise."""
     x = torch.randn(1, 17, 16, 16)
     lbl = torch.randint(0, 18, (1, 16, 16))
@@ -337,9 +339,12 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     assert per_image.full_res == ("logits",)
     assert float(per_image({"logits": x, "logits_s8": s8}, lbl)[0]) == float(
         lovasz_softmax(x, lbl, per_image=True, impl="bucket"))
-    for name, item in (("CrossEntropyLoss", "item 11"), ("SemiSupervisedLoss", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_loss({"name": name}, 2, "cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_loss({"name": "SemiSupervisedLoss"}, 2, "cpu")
+    ce = build_loss({"name": "CrossEntropyLoss"}, 2, "cpu")    # ported since
+    assert ce.full_res == ("logits",)
+    assert float(ce({"logits": x, "logits_s8": s8}, lbl)[0]) == float(
+        cross_entropy(x, lbl, ignore_index=17))
     wrapper = build_loss({"losses": {"LovaszSoftmax": 1.0}, "lovasz_impl": "bucket"},
                          2, "cpu")
     assert wrapper.full_res == ()

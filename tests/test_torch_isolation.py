@@ -1,10 +1,13 @@
 """The port stands alone: it imports nothing of JAX, flax, optax or the JAX
 package (its validation and train paths, OCRNet's and HRNetv2's,
 DeepLabv3's forward with both single-scale fused Lovász routes,
-EncDec-UPerNet's validation on the LossWrapper and the prototype fused
-upsample's checks, run with them blocked), its entry
-points refuse to run on a missing card unless asked for the CPU, and its
-CPU path launches no kernel."""
+EncDec-UPerNet's validation on the LossWrapper, the prototype fused
+upsample's checks and the CLI's inference from a PNG tree on disk, run
+with them blocked), nor pandas, cv2, PIL, matplotlib or tensorboard, which
+the card's machine lacks (blocked in the same run; a source may import
+them only inside a `try` that catches ImportError), its entry points
+refuse to run on a missing card unless asked for the CPU, and its CPU path
+launches no kernel."""
 import ast
 import json
 import pathlib
@@ -22,7 +25,9 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_mod
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
     eval_spec, make_eval_loss_step, make_eval_step, make_train_step)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.main import main
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import (
     load_config, validate)
 
@@ -31,13 +36,17 @@ PORT = ROOT / "miccai2021_cataract_semantic_segmentation_tpu_torch"
 CONFIG = load_config(ROOT / "configs" / "OCRNet_rf_lvsz.json")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax",
            "miccai2021_cataract_semantic_segmentation_tpu")
+# absent on the card's machine; optional in the port (TBLogger, the figure)
+CARD_ABSENT = ("pandas", "cv2", "PIL", "matplotlib", "tensorboard")
 
 _SUBPROCESS = """
 import importlib, json, pkgutil, sys
-BLOCKED = %r
+BLOCKED, ABSENT = %r, %r
 for name in list(sys.modules):
-    if name.split(".")[0] in BLOCKED:
+    if name.split(".")[0] in BLOCKED + ABSENT:
         del sys.modules[name]
+for name in ABSENT:             # as if not installed: import fails, find_spec is None
+    sys.modules[name] = None
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -95,15 +104,39 @@ upn = build_model(upn_cfg["graph"], 2, device="cpu")
 upn_images = rng.integers(0, 256, (2, 60, 64, 3), dtype=np.uint8)
 upn_labels = rng.integers(0, 18, (2, 60, 64), dtype=np.uint8)
 upn_val = validate(upn, upn_cfg, upn_images, upn_labels, device="cpu", batch_size=2)
+import pathlib, tempfile
+from miccai2021_cataract_semantic_segmentation_tpu_torch.main import main
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+    canonical_from_network, write_tree)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+tmp_dir = tempfile.TemporaryDirectory()
+tmp = pathlib.Path(tmp_dir.name)
+write_tree(tmp / "data", upn_images, canonical_from_network(upn_labels, 2), [2, 12])
+cli_cfg = dict(json.load(open("configs/OCRNet_pretrained_t2.json")),
+               graph=hr_cfg["graph"], log_path=str(tmp / "logs"), run_id="cli",
+               load_checkpoint="published", valid_batch_size=2)
+save_checkpoint(tmp / "logs" / "published" / "chkpts", "best", hr, 0, 0.0, 0.0)
+(tmp / "cli.json").write_text(json.dumps(cli_cfg))
+cli = main(["-c", str(tmp / "cli.json"), "-dp", str(tmp / "data")], device="cpu")
+cli_info = json.loads((tmp / "logs" / "cli" / "info.json").read_text())["metrics"]
+cli_jsonl = (tmp / "logs" / "cli" / "valid" / "scalars.jsonl").is_file()
+tmp_dir.cleanup()
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
+cli_expected = int((pad_reflect_hw(torch.as_tensor(upn_labels)) < 17).sum())
 from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import proto_fused_upsample
 proto = proto_fused_upsample.main("cpu", n=1, n_time=0, h=5, ws=6, c=2,
                                   out_hw=(40, 48), h_pad=8, ws_pad=8, w_pad=128)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT
+                and sys.modules[m] is not None)
 print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
                   "train_loss": res["loss"], "hr_train_loss": hr_res["loss"],
                   "hr_valid_loss": hr_val["valid_loss"],
                   "dl_outputs": sorted(dl_out), "dl_v4": dl_v4, "dl_v3": dl_v3,
                   "upn_valid_loss": upn_val["valid_loss"],
+                  "cli_miou": [cli["miou"], cli_info["miou"]],
+                  "cli_pixels": int(np.asarray(cli_info["confusion_matrix"]).sum()),
+                  "cli_expected": cli_expected,
+                  "cli_decoded": cli["decoded"], "jsonl": cli_jsonl,
                   "proto_errors": [proto["fwd_max_abs_err"], proto["bwd_rel"]],
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
@@ -111,7 +144,7 @@ print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
 
 
 def test_port_imports_and_runs_with_jax_blocked():
-    out = subprocess.run([sys.executable, "-c", _SUBPROCESS % (BLOCKED,)],
+    out = subprocess.run([sys.executable, "-c", _SUBPROCESS % (BLOCKED, CARD_ABSENT)],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -123,6 +156,9 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert np.isfinite(res["dl_v4"]) and abs(res["dl_v3"] - res["dl_v4"]) <= 1e-5
     assert np.isfinite(res["upn_valid_loss"]) and res["upn_valid_loss"] > 0
     assert res["proto_errors"][0] < 1e-4 and res["proto_errors"][1] < 1e-5
+    assert np.isfinite(res["cli_miou"][0]) and res["cli_miou"][0] == res["cli_miou"][1]
+    assert res["cli_pixels"] == res["cli_expected"] > 0
+    assert sum(res["cli_decoded"].values()) == 1 and res["jsonl"]
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 
@@ -132,9 +168,18 @@ def _port_sources():
         + ["chip_smoke.py"]
 
 
+def _catches_import_error(handler) -> bool:
+    names = handler.type.elts if isinstance(handler.type, ast.Tuple) else [handler.type]
+    return any(isinstance(n, ast.Name) and n.id in ("ImportError", "ModuleNotFoundError")
+               for n in names)
+
+
 @pytest.mark.parametrize("path", _port_sources())
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
+    guarded = {id(sub) for node in ast.walk(tree) if isinstance(node, ast.Try)
+               and any(_catches_import_error(h) for h in node.handlers)
+               for stmt in node.body for sub in ast.walk(stmt)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots = [a.name.split(".")[0] for a in node.names]
@@ -143,6 +188,8 @@ def test_source_imports_nothing_of_jax(path):
         else:
             continue
         assert not set(roots) & set(BLOCKED), f"{path}:{node.lineno}"
+        if set(roots) & set(CARD_ABSENT):
+            assert id(node) in guarded, f"{path}:{node.lineno} outside try/except ImportError"
 
 
 def _no_card():
@@ -152,7 +199,8 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", ["build_model", "build_loss",
                                    "make_eval_step", "make_eval_loss_step",
-                                   "validate", "make_train_step", "train_steps"])
+                                   "validate", "make_train_step", "train_steps",
+                                   "Trainer", "main"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
     spec = eval_spec(CONFIG["data"]["transforms"])
@@ -173,6 +221,8 @@ def test_default_device_raises_without_cuda(entry):
         "validate": lambda: validate(
             build_model(CONFIG["graph"], 2, device="cpu"), CONFIG,
             np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 8, 8), np.uint8)),
+        "Trainer": lambda: Trainer(CONFIG),
+        "main": lambda: main(["-c", str(ROOT / "configs" / "OCRNet_pretrained_t2.json")]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
