@@ -148,7 +148,24 @@ Phases (any failure raises and the run exits non-zero):
      one B1 a full batch and none of the others, its loss and matrix equal
      to `validate`'s on the same frames and weights; the decoder that ran
      and each decoder's ms per frame, and the numpy and C++ PNG unfilters'
-     ms on one frame.
+     ms on one frame;
+ 21. the flagship recipe trained through the port's CLI from PNGs on disk:
+     configs/OCRNet_rf_lvsz.json (only data_path, log_path, run_id,
+     train.epochs 3, log_every_n_epochs 1 and profile_epoch 1 changed) on
+     a synthetic CaDIS tree of 24 training frames, of which 9 hold a rare
+     class each (r(I) 1.897 at threshold 0.15, so the epochs run 3 or 4
+     batches), and 8 validation frames. Run A in process through `main`,
+     its launches counted: one B1 a train step and a full validation
+     batch, one B2 a train step, none of the others; its ind_dist.npz
+     equal to a host replay of the repeat-factor sampler (seed + 1), its
+     `last` checkpoint holding the optimiser and the step, its epoch-1
+     trace naming B1 and B2. A repeat of A (the card's run-to-run spread of
+     the final weights). Run B stopped at epoch 2's validation and resumed
+     from `last` by the CLI in a subprocess: its step, index counts and
+     batches equal to A's, its final weights within twice the spread of
+     A's (bit-equal where the spread is 0). Prints each epoch's ms/step
+     (StepTimer), frames/s and the decode's share, each run's wall time
+     and A's peak memory.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -2333,6 +2350,241 @@ def phase20_served(dev) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training through the port's Trainer and CLI from PNGs on disk
+# ---------------------------------------------------------------------------
+
+# split 2's training frames and its validation frames (videos 5, 7, 16)
+TRAIN_FRAMES, VALID_FRAMES = 24, 8
+# task-2 classes of the training frames: the common ones in every frame's
+# blocks; each rare one in one block of one frame only (f = 1/24 < 0.15, so
+# that frame repeats r = 1.897 times: sum r(I) is about 32, so the epochs
+# run 3 or 4 batches of 8)
+COMMON_CLASSES = (0, 1, 2, 3, 4, 5, 6, 7, 17)
+RARE_CLASSES = (8, 9, 10, 11, 12, 13, 14, 15, 16)
+
+
+def train_from_disk_set(h=540, w=960, seed=0, block=60):
+    """Seeded task-2 frames for phase 21: the training frames (the first
+    TRAIN_FRAMES) of COMMON_CLASSES in block x block tiles, frame i <
+    len(RARE_CLASSES) with one tile of rare class i; the validation frames
+    of all 18 values; images whose colour follows the label, plus noise."""
+    rng = np.random.default_rng(seed)
+    n = TRAIN_FRAMES + VALID_FRAMES
+    labels = blocky_labels(rng, n, h, w, 18, block).astype(np.uint8)
+    common = np.asarray(COMMON_CLASSES, np.uint8)
+    labels[:TRAIN_FRAMES] = common[labels[:TRAIN_FRAMES] % len(common)]
+    for i, cls in enumerate(RARE_CLASSES):
+        labels[i, :block, block * i:block * (i + 1)] = cls
+    palette = rng.integers(0, 256, (18, 3))
+    noise = rng.integers(-20, 21, (n, h, w, 3))
+    images = np.clip(palette[labels] + noise, 0, 255).astype(np.uint8)
+    return images, labels
+
+
+def flat_floats(state_dict: dict) -> torch.Tensor:
+    """A state dict's floating-point entries (parameters and BatchNorm
+    statistics) in one float64 vector."""
+    return torch.cat([v.reshape(-1).double() for v in state_dict.values()
+                      if v.dtype.is_floating_point])
+
+
+def phase21_train_from_disk(dev) -> dict:
+    """The flagship recipe trained through the port's CLI from a synthetic
+    CaDIS tree: run A (in process, its kernels' launches counted and
+    epoch 1 traced), a repeat (the card's run-to-run spread), and run B
+    interrupted at epoch 2's validation and resumed by the CLI in a
+    subprocess; returns A's launch counts."""
+    import shutil
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import main as port_main
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import (
+        SegDataset, load_frame_table, reset_decoded, split_dataframes)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.samplers import (
+        RepeatFactorSampler)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.taxonomy import DATA_SPLITS
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+        canonical_from_network, write_tree)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import (
+        read_checkpoint)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
+
+    cfg = json.loads(pathlib.Path(CONFIG).read_text())
+    task, bs, epochs = int(cfg["data"]["experiment"]), int(cfg["data"]["batch_size"]), 3
+    images, labels = train_from_disk_set()
+    train_videos, valid_videos = DATA_SPLITS[2][0], DATA_SPLITS[2][1]
+    videos = [train_videos[i % len(train_videos)] for i in range(TRAIN_FRAMES)] + \
+        [valid_videos[i % len(valid_videos)] for i in range(VALID_FRAMES)]
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_train_"))
+    data, logs = tmp / "data", tmp / "logs"
+    try:
+        t = time.perf_counter()
+        write_tree(data, images, canonical_from_network(labels, task), videos)
+        print(f"train tree: {TRAIN_FRAMES} training + {VALID_FRAMES} validation "
+              f"frames written in {time.perf_counter() - t!r} s", flush=True)
+
+        # the index streams a host replay of the samplers gives, seed + 1
+        train_df = split_dataframes(load_frame_table(data_path=str(data)), 2,
+                                    blacklist=cfg["data"]["blacklist"])[0]
+        sampler = RepeatFactorSampler(train_df, cfg["data"]["repeat_factor_freq_thresh"],
+                                      task, blacklist=cfg["data"]["blacklist"],
+                                      seed=int(cfg["seed"]) + 1)
+        replay = [sampler.epoch_batches(bs) for _ in range(epochs)]
+        steps = [len(b) for b in replay]
+        print(f"sum r(I) = {float(sampler.repeat_factors.sum())!r} over "
+              f"{len(train_df)} frames (largest r {float(sampler.repeat_factors.max())!r}); "
+              f"steps per epoch {steps}", flush=True)
+        if len(train_df) != TRAIN_FRAMES or len(set(steps)) < 2:
+            raise AssertionError(f"the set should give epochs of varying length: {steps}")
+        n_steps = sum(steps)
+
+        def write_config(name, **changes):
+            c = json.loads(json.dumps(cfg))
+            c["train"]["epochs"] = epochs
+            c.update(data_path=str(data), log_path=str(logs), log_every_n_epochs=1,
+                     **changes)
+            path = tmp / f"{name}.json"
+            path.write_text(json.dumps(c))
+            return path
+
+        # record each Trainer's per-epoch train metrics, as it validates
+        epoch_log: list[dict] = []
+        validate = Trainer.validate
+
+        def logging_validate(self, epoch):
+            epoch_log.append(dict(self.train_metrics, run=self.run_id))
+            return validate(self, epoch)
+
+        Trainer.validate = logging_validate
+        try:
+            # run A: the uninterrupted run, traced at epoch 1, counted
+            path_a = write_config("run_a", run_id="run_a", profile_epoch=1)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            reset_decoded()
+            t = time.perf_counter()
+            metrics_a = port_main.main(["-c", str(path_a), "-dp", str(data)])
+            torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+
+            # the repeat: the card's own spread between two identical runs
+            path_r = write_config("repeat", run_id="repeat")
+            t = time.perf_counter()
+            port_main.main(["-c", str(path_r), "-dp", str(data)])
+            wall_r = time.perf_counter() - t
+
+            # run B: stopped entering epoch 2's validation, in process
+            class Stopped(Exception):
+                pass
+
+            trainer = Trainer(json.loads(write_config("run_b", run_id="run_b").read_text()),
+                              device=dev)
+
+            def interrupted(epoch):
+                if epoch == 2:
+                    raise Stopped("run B stopped at epoch 2's validation")
+                return logging_validate(trainer, epoch)
+
+            trainer.validate = interrupted
+            t = time.perf_counter()
+            try:
+                trainer.train()
+            except Stopped:
+                pass
+            else:
+                raise AssertionError("run B was not interrupted")
+            finally:
+                trainer.close()
+            wall_b = time.perf_counter() - t
+        finally:
+            Trainer.validate = validate
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ... resumed by the CLI in a subprocess from run B's `last`
+        path_b = write_config("resume_b", run_id="run_b", load_checkpoint="run_b")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "miccai2021_cataract_semantic_segmentation_tpu_torch.main",
+             "-c", str(path_b), "-dp", str(data)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall_resume = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"the resume exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        resumed_lines = [ln for ln in proc.stdout.splitlines() if "epoch 002" in ln]
+
+        # where an epoch's time goes: the decode of its frames on one thread
+        ds = SegDataset(train_df, task, str(data))
+        t = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        decode_ms = (time.perf_counter() - t) * 1e3 / len(ds)
+        for rec in epoch_log:
+            share = decode_ms * rec["steps"] * bs / (rec["seconds"] * 1e3)
+            print(f"{rec['run']} epoch {rec['epoch']}: {rec['steps']} steps, "
+                  f"{rec['ms_per_step']!r} ms/step (StepTimer, host clock), "
+                  f"{rec['frames_per_s']!r} frames/s, {rec['seconds']!r} s, "
+                  f"loss {rec['loss']!r}, miou {rec['miou']!r}; the decode "
+                  f"({decode_ms!r} ms a frame) {share!r} of the epoch", flush=True)
+        print(f"run A: {wall_a!r} s wall in process (main); the repeat {wall_r!r} s; "
+              f"run B to its interruption {wall_b!r} s; the CLI's resume "
+              f"{wall_resume!r} s wall (a process of its own): {resumed_lines}; "
+              f"peak memory of run A {peak} bytes; A's validation: miou "
+              f"{metrics_a['miou']!r}, loss {metrics_a['valid_loss']!r}", flush=True)
+
+        # gates: launches, index streams, checkpoints, resume, trace
+        # the Trainer's valid batch: 8 on the card (1 on the CPU)
+        n_valid_full = VALID_FRAMES // (8 if dev.type == "cuda" else 1)
+        want = dict(dict.fromkeys(KERNELS, 0), fu_hist=n_steps + epochs * n_valid_full,
+                    fu_grad=n_steps)
+        print(f"run A's launches {launches}, expected {want}", flush=True)
+        if launches != want:
+            raise AssertionError(f"Trainer.train launched {launches}, expected {want}")
+        runs = {name: (read_checkpoint(logs / name / "chkpts" / "chkpt_last.pt"),
+                       np.load(logs / name / "ind_dist.npz"))
+                for name in ("run_a", "repeat", "run_b")}
+        ckpt_a, dist_a = runs["run_a"]
+        if int(dist_a["ind_counts"].sum()) != n_steps * bs or not np.array_equal(
+                dist_a["ind_counts"], np.bincount(np.concatenate(replay).reshape(-1),
+                                                  minlength=TRAIN_FRAMES)):
+            raise AssertionError("run A's ind_counts differ from the samplers' replay")
+        for e, b in enumerate(replay):
+            if not np.array_equal(dist_a[f"batches_e{e:03d}"], b):
+                raise AssertionError(f"run A's epoch {e} batches differ from the replay")
+        if ckpt_a["global_step"] != n_steps or not ckpt_a["optimizer_state_dict"]["state"]:
+            raise AssertionError(f"run A's last checkpoint: step {ckpt_a['global_step']} "
+                                 f"of {n_steps}, optimiser state "
+                                 f"{len(ckpt_a['optimizer_state_dict']['state'])}")
+        ckpt_b, dist_b = runs["run_b"]
+        if ckpt_b["global_step"] != n_steps or sorted(dist_b.files) != sorted(
+                dist_a.files) or any(not np.array_equal(dist_b[k], dist_a[k])
+                                     for k in dist_a.files):
+            raise AssertionError("run B's step, index counts or batches differ from A's")
+        weights_a = flat_floats(ckpt_a["model_state_dict"])
+        spread = rel_l2(flat_floats(runs["repeat"][0]["model_state_dict"]), weights_a)
+        apart = rel_l2(flat_floats(ckpt_b["model_state_dict"]), weights_a)
+        print(f"final parameters and BatchNorm statistics, relative L2 from run A: "
+              f"the repeat {spread!r}, the resumed run B {apart!r}", flush=True)
+        if apart > 2 * spread or (spread == 0 and apart != 0):
+            raise AssertionError(f"run B lies {apart!r} from A, the spread is {spread!r}")
+        trace = (logs / "run_a" / "profile" / "trace.json").read_text()
+        named = {k: trace.count(k) for k in ("fu_hist_kernel", "fu_grad_kernel")}
+        print(f"run A's epoch-1 trace: {len(trace)} bytes; kernel names {named}",
+              flush=True)
+        if not all(named.values()):
+            raise AssertionError(f"the trace does not name B1 and B2: {named}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2406,6 +2658,9 @@ def main() -> int:
                          upernet_batch_check)
     phase(19, train_card_vs_cpu, dev, upernet_config(), "UPerNet")
     phase(20, phase20_served, dev)
+    trainer_launches = phase(21, phase21_train_from_disk, dev)
+    b1["trainer_train_launches"] = trainer_launches["fu_hist"]
+    b2["trainer_train_launches"] = trainer_launches["fu_grad"]
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
@@ -2417,7 +2672,10 @@ def main() -> int:
           f"{upn_launches['fu_hist']}/{upn_launches['fu_grad']}, B3/B4/B4f: "
           "HRNetv2, whose backward runs B4f and not B4 (B4 stays behind the "
           "per-row `bucket_lovasz_per_class`), "
-          "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route) "
+          "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route), "
+          "over the flagship's Trainer.train from disk (B1/B2: "
+          f"{trainer_launches['fu_hist']}/{trainer_launches['fu_grad']}, "
+          "'trainer_train_launches') "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

@@ -6,10 +6,11 @@
 
 The command line always runs on the card: `-d N` selects cuda:N (cuda
 without it). `main(argv, device=...)` takes another device for callers
-such as the tests. Modes (config['mode']): inference (the best checkpoint
-of the run that `load_checkpoint` names, then `Trainer.infer`). Training
-and the video modes are not ported yet and raise with their ROADMAP Queue
-A items (8 and 13).
+such as the tests. Modes (config['mode']): training (`Trainer.train`,
+resumed from the `last` checkpoint of the run that `load_checkpoint`
+names, where the config names one) and inference (the best checkpoint of
+that run, then `Trainer.infer`). The video modes are not ported yet and
+raise with their ROADMAP Queue A item (13).
 """
 from __future__ import annotations
 
@@ -45,19 +46,17 @@ def main(argv=None, device=None) -> dict:
     if device is None:
         device = f"cuda:{args.device}" if args.device >= 0 else "cuda"
     mode = config.get("mode", "training")
-    if mode == "training":
-        raise NotImplementedError("training through the CLI is not ported yet "
-                                  "(ROADMAP Queue A item 8)")
     if mode in ("video_inference", "demo_video_inference"):
         raise NotImplementedError(f"mode '{mode}' is not ported yet (ROADMAP "
                                   "Queue A item 13)")
-    if mode != "inference":
+    if mode not in ("training", "inference"):
         raise ValueError(f"Unknown mode '{mode}'")
     trainer = Trainer(config, device=device)
     try:
         if config.get("load_checkpoint"):
-            trainer.load_checkpoint("best", run_id=config["load_checkpoint"])
-        return trainer.infer()
+            trainer.load_checkpoint("last" if mode == "training" else "best",
+                                    run_id=config["load_checkpoint"])
+        return trainer.train() if mode == "training" else trainer.infer()
     finally:
         trainer.close()
 

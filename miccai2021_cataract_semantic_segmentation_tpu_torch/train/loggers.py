@@ -1,14 +1,17 @@
-"""Observability: TensorBoard scalars, images and figures, and a step timer.
+"""Observability: TensorBoard scalars, images and figures, a trace of
+steps, and a step timer.
 
-Port of `TBLogger`, `confusion_matrix_figure` and `StepTimer` from the JAX
-package's train/loggers.py. `TBLogger` writes through
-`torch.utils.tensorboard` where tensorboard imports, else scalars to
-`scalars.jsonl` (images and figures are then dropped); the figure is drawn
-with matplotlib where it imports, else it is None. Neither package is
-needed to run.
+Port of `TBLogger`, `confusion_matrix_figure`, `index_histogram_figure`,
+`profile_steps` and `StepTimer` from the JAX package's train/loggers.py.
+`TBLogger` writes through `torch.utils.tensorboard` where tensorboard
+imports, else scalars to `scalars.jsonl` (images and figures are then
+dropped); the figures are drawn with matplotlib where it imports, else
+they are None. Neither package is needed to run. `profile_steps` traces a
+block with `torch.profiler` in place of `jax.profiler`.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import time
@@ -90,6 +93,45 @@ def confusion_matrix_figure(matrix: np.ndarray, task: int):
                         color="white" if matrix[i, j] > 0.6 else "black")
     fig.tight_layout()
     return fig
+
+
+def index_histogram_figure(counts: np.ndarray, bins: int = 50):
+    """Bar chart of how often each sample was drawn, in `bins` bins of
+    sample indices (the reference's utils/utils.py:547-574
+    fig_from_dist); None without matplotlib."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    per_bin = max(len(counts) // bins, 1)
+    n = len(counts) // per_bin
+    agg = counts[: n * per_bin].reshape(n, per_bin).sum(axis=1)
+    fig, ax = plt.subplots(figsize=(10, 4))
+    ax.bar(range(n), agg)
+    ax.set_xlabel("sample index bin")
+    ax.set_ylabel("times sampled")
+    fig.tight_layout()
+    return fig
+
+
+@contextlib.contextmanager
+def profile_steps(run_dir, device):
+    """A `torch.profiler` trace of the block, the host's activity and, on a
+    CUDA `device`, the card's kernels, written as a Chrome trace to
+    <run_dir>/profile/trace.json when the block ends; yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = pathlib.Path(run_dir) / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))
 
 
 class StepTimer:

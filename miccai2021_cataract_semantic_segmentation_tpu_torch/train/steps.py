@@ -143,10 +143,25 @@ def step_draws(spec: DeviceAugmentSpec, n: int, seed: int,
     return draw_augment(spec, n, gen)
 
 
+def debug_batch(x: torch.Tensor, lbl: torch.Tensor, logits: torch.Tensor,
+                spec: DeviceAugmentSpec) -> dict:
+    """The debugging dump of a train batch: the augmented images `x` (NCHW
+    float) as uint8 NHWC with ImageNet normalisation undone, the labels and
+    the argmax of the full-resolution `logits`, all uint8."""
+    img = x.permute(0, 2, 3, 1).float()
+    if spec.normalise:
+        img = (img * torch.tensor(IMAGENET_STD, device=img.device)
+               + torch.tensor(IMAGENET_MEAN, device=img.device))
+    return {"debug_img": (img.clamp(0.0, 1.0) * 255).to(torch.uint8),
+            "debug_lbl": lbl.to(torch.uint8),
+            "debug_pred": logits.argmax(dim=1).to(torch.uint8)}
+
+
 def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                     device: str | torch.device = "cuda",
                     precision: str = "bf16", train_metrics: str = "full",
-                    seed: int = 0, has_point_head: bool = False, mesh=None,
+                    seed: int = 0, debug_pred: bool = False,
+                    has_point_head: bool = False, mesh=None,
                     semi: dict | None = None):
     """step(state, images_u8, labels_u8, epoch, draws=None) -> metrics.
 
@@ -161,9 +176,12 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     gradients). `train_metrics="s8"` counts the confusion matrix from the
     stride-8 logits (`logits_s8`, else `logits_s8_acf`) against
     `downsample_labels`, or from the full-resolution logits of a model that
-    gives neither; "full" counts it from the full-resolution logits. The
+    gives neither; "full" counts it from the full-resolution logits.
+    `debug_pred` adds, for the debugging dumps, the augmented batch as
+    uint8 NHWC (`debug_img`, ImageNet normalisation undone), its labels
+    (`debug_lbl`) and the full-resolution argmax (`debug_pred`). The
     forward computes the full-resolution outputs that the loss
-    (`loss_fn.full_res`) and the metric read, and no others."""
+    (`loss_fn.full_res`) and the metrics read, and no others."""
     if semi is not None:
         raise _not_ported("semi-supervised training", "11")
     if has_point_head:
@@ -175,7 +193,7 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                          f"'{train_metrics}'")
     dev = resolve_device(device)
     full_res = _loss_full_res(loss_fn) + (
-        () if train_metrics == "s8" else ("logits",))
+        () if train_metrics == "s8" and not debug_pred else ("logits",))
 
     def step(state: TrainState, images_u8, labels_u8, epoch,
              draws: AugmentDraws | None = None) -> dict:
@@ -199,8 +217,12 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                 cm = confusion_matrix(s8, downsample_labels(lbl, s8.shape[2:]))
             else:
                 cm = confusion_matrix(outputs["logits"], lbl)
-        return {"loss": total.detach(),
-                **{k: v.detach() for k, v in terms.items()},
-                "confusion_matrix": cm, "grad_norm": grad_norm}
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in terms.items()},
+                   "confusion_matrix": cm, "grad_norm": grad_norm}
+        if debug_pred:
+            with torch.no_grad():
+                metrics.update(debug_batch(x, lbl, outputs["logits"], spec))
+        return metrics
 
     return step

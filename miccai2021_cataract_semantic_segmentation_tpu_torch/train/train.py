@@ -1,12 +1,12 @@
-"""Train steps over index batches — the numeric core of the JAX Trainer's
-`train` epoch loop (train/trainer.py:467-540).
+"""Train steps over index batches from arrays in memory — the numeric
+core of the Trainer's epoch loop (train/trainer.py:Trainer.train).
 
 `train_steps` builds the loss, the device spec, the LR schedule, the
 optimiser and the train step from a run config, runs the given index
 batches through the step, accumulates the confusion matrix and the loss on
-the device, and returns the epoch's train metrics. The samplers and
-training through the Trainer (its epoch loop, prefetch, TensorBoard and
-checkpoints) are not ported yet (ROADMAP Queue A items 7-8).
+the device, and returns the epoch's train metrics. `Trainer.train` runs
+the same step over the frames on disk, with the samplers, the schedule
+over epochs, TensorBoard, validation, checkpoints and resume.
 """
 from __future__ import annotations
 

@@ -1,22 +1,31 @@
-"""Trainer: the served half (inference and validation) of the JAX package's
-train/trainer.py.
+"""Trainer: the port of the JAX package's train/trainer.py.
 
 One object holds the run: its directory and checkpoints, the frame table
-and its split, the datasets, the model, the loss, the eval steps and the
-writers. `validate(epoch)` runs the validation set in tail-padded, masked
-batches (the loss over the full batches only, the confusion matrix in
-int64 on the host), keeps the best-mIoU and periodic checkpoints and
-rewrites info.json; `infer()` times the eval step over the set after one
-warm-up batch and writes its metrics and frames/s to info.json. The
-device is "cuda" unless the caller passes device="cpu" (the tests).
+and its split, the datasets, the model, the loss, the train state (the
+optimiser and its LR schedule over epochs of varying length), the train
+and eval steps and the writers. `train()` runs the epochs: each epoch's
+index batches from the loader its schedule names (default, repeat-factor,
+oversampling, weighted-random or adaptive batching; data/samplers.py),
+the train step over them with the confusion matrix and the loss kept on
+the card and read back once an epoch, the step scalars, `validate(epoch)`,
+and at the end the `last` checkpoint (with the optimiser and the step) and
+the index histogram. A resume (`load_checkpoint("last")`) replays the
+index streams of the epochs already trained, so the rest see the batches
+an uninterrupted run sees. `validate(epoch)` runs the validation set in
+tail-padded, masked batches (the loss over the full batches only, the
+confusion matrix in int64 on the host), keeps the best-mIoU and periodic
+checkpoints and rewrites info.json; `infer()` times the eval step over the
+set after one warm-up batch and writes its metrics and frames/s to
+info.json. The device is "cuda" unless the caller passes device="cpu"
+(the tests).
 
-Not ported yet, and raising with their ROADMAP Queue A items: `train()`
-(item 8, with the samplers and exact resume), TTA (item 13), the Ensemble
-(item 12), the MoCo-pretrained backbone and the semi-supervised mode
-(item 11).
+Not ported yet, and raising with their ROADMAP Queue A items: TTA (item
+13), the Ensemble (item 12), the MoCo-pretrained backbone and the
+semi-supervised mode (item 11).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import pathlib
 import time
@@ -32,6 +41,9 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import (
     DECODED, SegDataset)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import (
     assemble_batch, epoch_iterator, eval_batches)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.samplers import (
+    AdaptiveBatchSampler, RepeatFactorSampler, oversample_indices,
+    weighted_random_epoch, weighted_random_weights)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
     build_transform_pipeline)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
@@ -41,9 +53,14 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.remap import mask_to_colormap
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train import checkpoint as ckpt
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.loggers import (
-    TBLogger, confusion_matrix_figure)
+    StepTimer, TBLogger, confusion_matrix_figure, index_histogram_figure,
+    profile_steps)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
-    EvalSpec, make_eval_loss_step, make_eval_step)
+    EvalSpec, make_eval_loss_step, make_eval_step, make_train_step)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+    train_metrics_source)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -117,6 +134,27 @@ class Trainer:
         vbs = config.get("valid_batch_size")
         self.valid_batch_size = int(vbs) if vbs else \
             (8 if self.device.type == "cuda" else 1)
+        self.batch_size = int(dcfg.get("batch_size", 8))
+
+        # the per-epoch loader schedule (BaseManager.py:202-213): a loader's
+        # [start] runs it from `start` to the end, [start, end] up to `end`
+        self.epochs = int(config["train"].get("epochs", 50))
+        self.train_schedule = {e: "default" for e in range(self.epochs)}
+        for loader in ("adaptive_batching", "oversampling", "weighted_random",
+                       "repeat_factor"):
+            span = list(dcfg.get(loader, [0, 0]))
+            if len(span) == 1:
+                span.append(self.epochs)
+            for e in range(*span):
+                if 0 <= e < self.epochs:
+                    self.train_schedule[e] = loader
+        self._samplers: dict = {}
+        self.steps_per_epoch = max(1, len(self.train_set) // self.batch_size)
+        # an epoch's length is its loader's own (a repeat-factor epoch
+        # about sum r(I) / bs batches, an oversampling one (n + extra) /
+        # bs), and the LR schedule counts those lengths
+        self.epoch_steps = [self._expected_steps(self.train_schedule[e])
+                            for e in range(self.epochs)]
 
         # model, loss, eval steps ------------------------------------------
         self.precision = config.get("precision", "bf16")
@@ -131,19 +169,34 @@ class Trainer:
                                         self.precision)
         self.eval_loss_step = make_eval_loss_step(self.loss_fn, spec, self.device,
                                                   self.precision)
+        # the train state in every mode, so that load_checkpoint("last")
+        # restores the optimiser and the step
+        self.schedule = make_schedule(config["train"], self.epoch_steps)
+        self.state = create_train_state(self.model, config["train"], self.schedule)
+        self.num_params = sum(p.numel() for p in self.model.parameters())
+        self.debugging = bool(config.get("debugging", False))
+        self.train_step = make_train_step(
+            self.loss_fn, self.pipeline.device, self.task, device=self.device,
+            precision=self.precision, train_metrics=train_metrics_source(config),
+            seed=self.seed, debug_pred=self.debugging)
 
         # bookkeeping ------------------------------------------------------
-        self.state = None          # the train state comes with train()
-        self.debugging = bool(config.get("debugging", False))
+        self.train_writer = TBLogger(self.run_dir / "train")
         self.valid_writer = TBLogger(self.run_dir / "valid")
         self.global_step = 0
         self.start_epoch = 0
         self.best_miou = 0.0
         self.best_loss = float("inf")
         self.metrics: dict = {}
+        self.train_metrics: dict = {}
+        self.ind_counts = np.zeros(len(self.train_set), np.int64)
+        self.epoch_batches: dict[int, np.ndarray] = {}
+        self.adaptive_sampler: AdaptiveBatchSampler | None = None
         self.log_every_n_epochs = int(config.get("log_every_n_epochs", 100))
+        self.log_every_n_steps = int(config.get("log_every_n_steps", 50))
 
     def close(self) -> None:
+        self.train_writer.close()
         self.valid_writer.close()
 
     def _load_torch_checkpoint(self, path) -> None:
@@ -152,9 +205,175 @@ class Trainer:
         ckpt.load_model_state(self.model, ckpt.load_torch_checkpoint(path), str(path))
         print(f"[{self.run_id}] loaded torch checkpoint {path}")
 
-    def train(self):
-        raise _not_ported("training through the Trainer (its samplers, host "
-                          "transforms and exact resume)", "8")
+    # ---------------------------------------------------------------- data
+    def _get_rf_sampler(self) -> RepeatFactorSampler:
+        s = self._samplers.get("repeat_factor")
+        if s is None:
+            s = self._samplers["repeat_factor"] = RepeatFactorSampler(
+                self.train_df, self.config["data"]["repeat_factor_freq_thresh"],
+                self.task, blacklist=self.config["data"].get("blacklist", True),
+                seed=self.seed + 1)
+        return s
+
+    def _get_oversampling_extra(self) -> np.ndarray:
+        extra = self._samplers.get("oversampling")
+        if extra is None:
+            extra = self._samplers["oversampling"] = oversample_indices(
+                self.train_df, self.task,
+                self.config["data"].get("oversampling_preset", "default"),
+                self.config["data"].get("oversampling_frac", 0.2))
+        return extra
+
+    def _expected_steps(self, mode: str) -> int:
+        """The batches of one epoch of loader `mode`."""
+        n, bs = len(self.train_set), self.batch_size
+        if mode == "repeat_factor":
+            return max(1, int(self._get_rf_sampler().repeat_factors.sum()) // bs)
+        if mode == "oversampling":
+            return max(1, (n + len(self._get_oversampling_extra())) // bs)
+        return max(1, n // bs)
+
+    def _epoch_batches(self, epoch: int, np_rng: np.random.Generator) -> np.ndarray:
+        """(steps, batch_size) indices of `epoch` from its scheduled loader;
+        `np_rng` is the run's generator (the default, oversampling and
+        weighted-random loaders draw from it), the other loaders keep
+        their own."""
+        mode = self.train_schedule.get(epoch, "default")
+        n, bs = len(self.train_set), self.batch_size
+        if mode == "repeat_factor":
+            batches = self._get_rf_sampler().epoch_batches(bs)
+        elif mode == "oversampling":
+            idx = np_rng.permutation(np.concatenate(
+                [np.arange(n), self._get_oversampling_extra()]))
+            batches = idx[: (len(idx) // bs) * bs].reshape(-1, bs)
+        elif mode == "weighted_random":
+            w = self._samplers.get("weighted_random")
+            if w is None:
+                w = self._samplers["weighted_random"] = weighted_random_weights(
+                    self.train_df, self.task,
+                    self.config["data"].get("weighted_random_mode", "v1"))
+            idx = weighted_random_epoch(w, n, np_rng)
+            batches = idx[: (n // bs) * bs].reshape(-1, bs)
+        elif mode == "adaptive_batching":
+            if self.adaptive_sampler is None:
+                d = self.config["data"]
+                self.adaptive_sampler = AdaptiveBatchSampler(
+                    self.train_df, self.task, bs, d.get("adaptive_sel_size", 10),
+                    dist_type=d.get("adaptive_dist_type", "1-**2"),
+                    iou_update=d.get("adaptive_iou_update", 1), seed=self.seed + 2)
+            batches = self.adaptive_sampler.epoch_batches()
+        else:
+            idx = np_rng.permutation(n)
+            batches = idx[: (n // bs) * bs].reshape(-1, bs)
+        # an epoch has its loader's natural length (the reference's
+        # drop_last DataLoader)
+        if not len(batches):
+            raise ValueError(f"epoch {epoch} ({mode}) has no full batch of {bs} "
+                             f"from {n} training frames")
+        return batches
+
+    def _count_inds(self, epoch: int, batches: np.ndarray) -> None:
+        """Keep `epoch`'s batches and count how often each sample is drawn
+        (the reference's ind_dist, EncDec_Manager.py:70-77)."""
+        self.epoch_batches[epoch] = batches
+        flat = batches.reshape(-1)
+        np.add.at(self.ind_counts, flat[flat < len(self.ind_counts)], 1)
+
+    # --------------------------------------------------------------- train
+    def train(self) -> dict:
+        """Train from `start_epoch` to `epochs`, validating each epoch;
+        returns the last validation's metrics."""
+        cfg = self.config
+        print(f"[{self.run_id}] training {cfg.get('graph', {}).get('model')} "
+              f"task {self.task}: {self.num_params / 1e6:.1f}M params, "
+              f"{self.steps_per_epoch} steps/epoch x {self.epochs} epochs on "
+              f"{self.device}")
+        ckpt.write_info_json(self.run_dir, cfg, self.metrics)
+        np_rng = np.random.default_rng(self.seed)
+        # resume: the index streams are functions of the seeds alone, so
+        # replaying the epochs already trained leaves np_rng, the samplers'
+        # generators and ind_counts where an uninterrupted run has them
+        # (the adaptive sampler's IoU feedback restarts from its prior)
+        for epoch in range(self.start_epoch):
+            self._count_inds(epoch, self._epoch_batches(epoch, np_rng))
+        profile_epoch = cfg.get("profile_epoch")
+        adaptive_sync = int(cfg.get("adaptive_sync_every", 8))
+
+        for epoch in range(self.start_epoch, self.epochs):
+            batches = self._epoch_batches(epoch, np_rng)
+            self._count_inds(epoch, batches)
+            adaptive = self.train_schedule.get(epoch) == "adaptive_batching"
+            running_cm, adaptive_cm = None, None
+            running_loss = torch.zeros((), device=self.device)
+            timer = StepTimer()     # the epoch's steps, not the validation between
+            t_epoch = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if profile_epoch == epoch:
+                    stack.enter_context(profile_steps(self.run_dir, self.device))
+                for bi, (images, labels, _) in enumerate(epoch_iterator(
+                        self.train_set, batches, self.device, prefetch=2)):
+                    m = self.train_step(self.state, images, labels, epoch)
+                    if self.debugging:
+                        self._dump_debug_batch(m, epoch, bi)
+                    cm = m["confusion_matrix"]
+                    running_cm = cm if running_cm is None else running_cm + cm
+                    running_loss += m["loss"]
+                    timer.tick()
+                    if adaptive:
+                        # the IoU feedback is read back every adaptive_sync
+                        # steps, not every step as the reference does
+                        adaptive_cm = cm if adaptive_cm is None else adaptive_cm + cm
+                        if (bi + 1) % adaptive_sync == 0 or bi + 1 == len(batches):
+                            iou = mean_iou_breakdown(adaptive_cm.cpu().numpy(),
+                                                     self.task)["per_class"]
+                            self.adaptive_sampler.update_iou(np.asarray(iou)[
+                                : len(self.adaptive_sampler.iou_values)])
+                            adaptive_cm = None
+                    if self.global_step % self.log_every_n_steps == 0:
+                        self.train_writer.scalars(
+                            {k: float(v) for k, v in m.items()
+                             if v.ndim == 0}, self.global_step, prefix="metrics/")
+                        self.train_writer.scalar("parameters/learning_rate",
+                                                 self.schedule(self.state.step),
+                                                 self.global_step)
+                    self.global_step += 1
+            # the epoch's metrics: one read-back of the matrix and the loss
+            cm = running_cm.cpu().numpy().astype(np.int64)
+            loss = float(running_loss) / len(batches)
+            seconds = time.perf_counter() - t_epoch
+            bd = mean_iou_breakdown(cm, self.task)
+            pa, _ = pixel_accuracy(cm)
+            fps = len(batches) * self.batch_size / seconds
+            print(f"[{self.run_id}] epoch {epoch:03d}: loss {loss:.4f} "
+                  f"miou {float(bd['miou']):.4f} pa {float(pa):.4f} "
+                  f"{timer.mean_ms:.0f} ms/step {fps:.1f} fps")
+            self.train_metrics = {
+                "epoch": epoch, "miou": float(bd["miou"]), "pa": float(pa),
+                "loss": loss, "steps": len(batches), "seconds": seconds,
+                "ms_per_step": timer.mean_ms, "frames_per_s": fps}
+            self.train_writer.scalar("metrics/epoch_miou", bd["miou"], epoch)
+            self.train_writer.scalar("metrics/epoch_fps", fps, epoch)
+            self.validate(epoch)
+        ckpt.save_checkpoint(self.ckpt_dir, "last", self.model, self.epochs - 1,
+                             self.best_miou, self.best_loss, self.state)
+        self.train_writer.figure("ind_dist", index_histogram_figure(self.ind_counts),
+                                 self.global_step)
+        np.savez(self.run_dir / "ind_dist.npz", ind_counts=self.ind_counts,
+                 **{f"batches_e{e:03d}": b for e, b in self.epoch_batches.items()})
+        self.train_writer.flush()
+        return self.metrics
+
+    def _dump_debug_batch(self, m: dict, epoch: int, bi: int) -> None:
+        """img|gt|pred triptychs of a train batch under <run_dir>/debug/ in
+        debugging mode (the reference's EncDec_Manager.py:86-94, 201-206)."""
+        dbg = self.run_dir / "debug"
+        dbg.mkdir(exist_ok=True)
+        imgs, lbls, preds = (m[k].cpu().numpy()
+                             for k in ("debug_img", "debug_lbl", "debug_pred"))
+        for k in range(imgs.shape[0]):
+            comb = np.concatenate([imgs[k], mask_to_colormap(lbls[k], self.task),
+                                   mask_to_colormap(preds[k], self.task)], axis=1)
+            png.write_png(dbg / f"e{epoch:03d}_b{bi:04d}_{k}.png", comb)
 
     # ------------------------------------------------------------ validate
     def validate(self, epoch: int) -> dict:
@@ -236,14 +455,18 @@ class Trainer:
     # ------------------------------------------------------------ inference
     def load_checkpoint(self, which: str = "best", run_id: str | None = None) -> dict:
         """Load chkpt_<which>.pt of this run, or of run `run_id` under the
-        same log_path (a published run directory), into the model."""
+        same log_path (a published run directory), into the model, and its
+        optimiser state and step where it has them (a `last` checkpoint);
+        `train()` then goes on from the epoch after the checkpoint's."""
         ckpt_dir = self.ckpt_dir if run_id is None else \
             pathlib.Path(self.config.get("log_path", "logs")) / run_id / "chkpts"
         meta = ckpt.restore_checkpoint(ckpt_dir, which, self.model, self.state)
         self.start_epoch = meta["epoch"] + 1
         self.best_miou = meta["best_miou"]
         self.best_loss = meta["best_loss"]
-        self.global_step = meta["global_step"]
+        # the optimiser's step counts the train batches, so it is the
+        # global step: the train scalars go on where the run stopped
+        self.global_step = self.state.step
         return meta
 
     def infer(self, tta: bool | None = None) -> dict:

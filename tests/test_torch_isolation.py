@@ -2,12 +2,12 @@
 package (its validation and train paths, OCRNet's and HRNetv2's,
 DeepLabv3's forward with both single-scale fused Lovász routes,
 EncDec-UPerNet's validation on the LossWrapper, the prototype fused
-upsample's checks and the CLI's inference from a PNG tree on disk, run
-with them blocked), nor pandas, cv2, PIL, matplotlib or tensorboard, which
-the card's machine lacks (blocked in the same run; a source may import
-them only inside a `try` that catches ImportError), its entry points
-refuse to run on a missing card unless asked for the CPU, and its CPU path
-launches no kernel."""
+upsample's checks and the CLI's inference and training from a PNG tree
+on disk, run with them blocked), nor pandas, cv2, PIL, matplotlib or
+tensorboard, which the card's machine lacks (blocked in the same run; a
+source may import them only inside a `try` that catches ImportError), its
+entry points refuse to run on a missing card unless asked for the CPU,
+and its CPU path launches no kernel."""
 import ast
 import json
 import pathlib
@@ -120,6 +120,20 @@ save_checkpoint(tmp / "logs" / "published" / "chkpts", "best", hr, 0, 0.0, 0.0)
 cli = main(["-c", str(tmp / "cli.json"), "-dp", str(tmp / "data")], device="cpu")
 cli_info = json.loads((tmp / "logs" / "cli" / "info.json").read_text())["metrics"]
 cli_jsonl = (tmp / "logs" / "cli" / "valid" / "scalars.jsonl").is_file()
+train_images = np.concatenate([upn_images, upn_images])
+write_tree(tmp / "train_data", train_images,
+           canonical_from_network(np.concatenate([upn_labels, upn_labels]), 2),
+           [1, 3, 5, 7])
+train_cfg = dict(hr_cfg, mode="training", log_path=str(tmp / "logs"), run_id="train",
+                 valid_batch_size=2, profile_epoch=0,
+                 data=dict(hr_cfg["data"], batch_size=2),
+                 train=dict(hr_cfg["train"], epochs=1))
+(tmp / "train.json").write_text(json.dumps(train_cfg))
+trained = main(["-c", str(tmp / "train.json"), "-dp", str(tmp / "train_data")],
+               device="cpu")
+run = tmp / "logs" / "train"
+train_files = sorted(str(p.relative_to(run)) for p in run.rglob("*") if p.is_file())
+train_steps_taken = int(np.load(run / "ind_dist.npz")["ind_counts"].sum()) // 2
 tmp_dir.cleanup()
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
 cli_expected = int((pad_reflect_hw(torch.as_tensor(upn_labels)) < 17).sum())
@@ -137,6 +151,8 @@ print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
                   "cli_pixels": int(np.asarray(cli_info["confusion_matrix"]).sum()),
                   "cli_expected": cli_expected,
                   "cli_decoded": cli["decoded"], "jsonl": cli_jsonl,
+                  "trained_miou": trained["miou"], "train_files": train_files,
+                  "train_steps": train_steps_taken,
                   "proto_errors": [proto["fwd_max_abs_err"], proto["bwd_rel"]],
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
@@ -159,6 +175,10 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert np.isfinite(res["cli_miou"][0]) and res["cli_miou"][0] == res["cli_miou"][1]
     assert res["cli_pixels"] == res["cli_expected"] > 0
     assert sum(res["cli_decoded"].values()) == 1 and res["jsonl"]
+    assert np.isfinite(res["trained_miou"]) and res["train_steps"] >= 1
+    for name in ("chkpts/chkpt_last.pt", "ind_dist.npz", "info.json",
+                 "profile/trace.json", "train/scalars.jsonl", "valid/scalars.jsonl"):
+        assert name in res["train_files"], name
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 
