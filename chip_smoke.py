@@ -165,7 +165,37 @@ Phases (any failure raises and the run exits non-zero):
      batches equal to A's, its final weights within twice the spread of
      A's (bit-equal where the spread is 0). Prints each epoch's ms/step
      (StepTimer), frames/s and the decode's share, each run's wall time
-     and A's peak memory.
+     and A's peak memory;
+ 22. on a tree of phase 21's frames plus 8 frames of split 2's test videos
+     (which training leaves out): (a) the flagship recipe with the
+     projector ({"d": 256, "mlp": [[1, 512, 1]], "use_bn": true}), the
+     LossWrapper {TwoScaleLoss: 1, DenseContrastiveLoss: 0.1,
+     DenseContrastiveLossV2: 0.1} at dc_off_at_epoch 1 and the affine host
+     warp, 2 epochs through the CLI in process: one B1 a step and a
+     validation batch, one B2 a step, none of the others; the V1 term
+     non-zero at every step of epoch 0 and 0 in epoch 1, V2 non-zero;
+     (b) configs/DeepLabv3Plus_rf_lvsz.json with ["crop", "flip",
+     "colorjitter", "torchvision_normalise"] and the LossWrapper
+     {OhemCrossEntropy, FocalLoss, GenDiceLoss, SoftIoU, LovaszSoftmax
+     (bucket)}, 2 epochs: the 192x192 crops reach every step, the same
+     launch gates; (c) each new loss on the card in float32 against the CPU
+     in float64 at the flagship's full-resolution shape (value within 1e-5,
+     gradient relative L2 within 1e-4), `sliding_miou` card against CPU,
+     and the host warp's and crop's ms a frame;
+ 23. on the same tree, the flagship with SemiSupervisedLoss {labeled: its
+     TwoScaleLoss (bucket Lovász), pseudo_threshold: 0.9} through
+     `Trainer.train` for 2 epochs, the left-out frames as the unlabelled
+     pool: two B3 (one a half) and four B4f (one a scale a half) a step,
+     one B1 a validation batch, none of the others; B3 and B4f against
+     their plain versions at the half-batch shape (histogram bit-equal,
+     gradients as phase 10b); the batches [labelled | unlabelled] and the
+     index counts labelled only; a run stopped after epoch 0 and resumed
+     from `last`, bit-equal to the uninterrupted one (within twice a
+     repeat's spread where that is not 0); one step's pseudo-labels equal
+     to an explicit teacher pass, which leaves BatchNorm's buffers and the
+     train mode as they were; the semi step's and the flagship step's
+     times in turns and the teacher's share; a run initialised from a
+     synthetic MoCo-v2 checkpoint.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -176,6 +206,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -302,9 +333,15 @@ B1_CASES = [
     # the DeepLabv3 cell's single-scale route: align_corners=True, one scale
     # (B1_ONE_SCALE), B 2048 (B2's table is 139 KB in bf16)
     ("deeplabv3", 8, 17, (68, 120), (544, 960), 2048, "uniform", None, None, True),
+    # phase 22(b)'s DeepLabv3+ on the single-scale route: its stride-4
+    # logits of a 192x192 crop in each train step, and of an unpadded frame
+    # in its validation (the eval pad is off where crop is listed)
+    ("deeplabv3plus_crop", 8, 17, (48, 48), (192, 192), 2048, "uniform", None, None, True),
+    ("deeplabv3plus_valid", 8, 17, (135, 240), (540, 960), 2048, "uniform", None, None,
+     True),
 ]
 # the align_corners=True rows that run one scale (the single-scale route)
-B1_ONE_SCALE = ("deeplabv3",)
+B1_ONE_SCALE = ("deeplabv3", "deeplabv3plus_crop", "deeplabv3plus_valid")
 
 
 def b1_scales(case):
@@ -2585,6 +2622,545 @@ def phase21_train_from_disk(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: the contrastive recipe and the loss zoo, semi-supervised
+# self-training, from PNGs on disk
+# ---------------------------------------------------------------------------
+
+POOL_FRAMES = 8                      # the unlabelled pool of phase 23
+POOL_VIDEOS = (2, 12, 22)            # split 2's test videos: training leaves them out
+CONTRASTIVE_PROJECTOR = {"d": 256, "mlp": [[1, 512, 1]], "use_bn": True}
+ZOO_LOSSES = ("OhemCrossEntropy", "FocalLoss", "GenDiceLoss", "SoftIoU", "LovaszSoftmax")
+# the flagship's full-resolution logits and its projector's features
+ZOO_SHAPE = (8, 17, 544, 960)
+FEATURE_SHAPE = (8, 256, 68, 120)
+# one half of the semi batch: the labelled or the pseudo-labelled frames
+SEMI_HALF_SHAPE = (4, 17, 544, 960)
+SEMI_THRESHOLD = 0.9
+
+
+def write_semi_tree(root) -> pathlib.Path:
+    """Phase 21's training and validation frames and POOL_FRAMES more under
+    split 2's test videos, which training leaves out, as a CaDIS tree."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.taxonomy import DATA_SPLITS
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+        canonical_from_network, write_tree)
+    images, labels = train_from_disk_set()
+    pool_images, pool_labels = train_from_disk_set(seed=1)
+    images = np.concatenate([images, pool_images[:POOL_FRAMES]])
+    labels = np.concatenate([labels, pool_labels[:POOL_FRAMES]])
+    train_videos, valid_videos = DATA_SPLITS[2][0], DATA_SPLITS[2][1]
+    videos = [train_videos[i % len(train_videos)] for i in range(TRAIN_FRAMES)] + \
+        [valid_videos[i % len(valid_videos)] for i in range(VALID_FRAMES)] + \
+        [POOL_VIDEOS[i % len(POOL_VIDEOS)] for i in range(POOL_FRAMES)]
+    t = time.perf_counter()
+    write_tree(root, images, canonical_from_network(labels, 2), videos)
+    print(f"semi tree: {TRAIN_FRAMES} training, {VALID_FRAMES} validation and "
+          f"{POOL_FRAMES} left-out frames written in {time.perf_counter() - t!r} s",
+          flush=True)
+    return pathlib.Path(root)
+
+
+class _RunRecorder:
+    """Patches the Trainer module around a run: every train step's scalar
+    metrics (left on the device until read) and batch shape, and each
+    epoch's train metrics as the Trainer validates it."""
+
+    def __init__(self):
+        self.steps: list[tuple[int, tuple, dict]] = []
+        self.epochs: list[dict] = []
+
+    def __enter__(self):
+        from miccai2021_cataract_semantic_segmentation_tpu_torch.train import (
+            trainer as trainer_module)
+        self.module = trainer_module
+        self.make_step, self.validate = trainer_module.make_train_step, \
+            trainer_module.Trainer.validate
+        recorder = self
+
+        def make_train_step(*args, **kwargs):
+            inner = recorder.make_step(*args, **kwargs)
+
+            def step(state, images_u8, labels_u8, epoch, draws=None):
+                m = inner(state, images_u8, labels_u8, epoch, draws)
+                recorder.steps.append((epoch, tuple(images_u8.shape),
+                                       {k: v for k, v in m.items() if v.ndim == 0}))
+                return m
+            return step
+
+        def validate(trainer, epoch):
+            recorder.epochs.append(dict(trainer.train_metrics, run=trainer.run_id))
+            return recorder.validate(trainer, epoch)
+
+        trainer_module.make_train_step = make_train_step
+        trainer_module.Trainer.validate = validate
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_train_step = self.make_step
+        self.module.Trainer.validate = self.validate
+
+    def step_values(self, key: str) -> list[tuple[int, float]]:
+        return [(epoch, float(m[key])) for epoch, _, m in self.steps]
+
+    def print_epochs(self) -> None:
+        for rec in self.epochs:
+            print(f"{rec['run']} epoch {rec['epoch']}: {rec['steps']} steps, "
+                  f"{rec['ms_per_step']!r} ms/step (StepTimer, host clock), "
+                  f"{rec['frames_per_s']!r} frames/s, loss {rec['loss']!r}", flush=True)
+
+
+def host_warp_ms(h=540, w=960, reps=5) -> dict:
+    """Host ms a frame of the recipe's affine warp and of its crop (numpy,
+    one thread), median of `reps`."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
+        build_transform_pipeline)
+    images, labels = train_from_disk_set()
+    out = {}
+    for name in ("affine", "crop"):
+        t = build_transform_pipeline([name], {}, 2).host_train[0]
+        times = []
+        for k in range(reps):
+            t0 = time.perf_counter()
+            t(images[k], labels[k], np.random.default_rng(k))
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    print(f"host transforms, ms a {images.shape[1]}x{images.shape[2]} frame (median of "
+          f"{reps}): {out}", flush=True)
+    return out
+
+
+def _cli_run(data, logs, tmp, name: str, cfg: dict, dev):
+    """`cfg` through the port's CLI in process, its launches counted and
+    its steps recorded; returns (recorder, launches, wall s, peak bytes)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import main as port_main
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    cfg = dict(cfg, data_path=str(data), log_path=str(logs), run_id=name,
+               log_every_n_epochs=1)
+    path = tmp / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _RunRecorder() as rec:
+        t = time.perf_counter()
+        port_main.main(["-c", str(path), "-dp", str(data)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rec.print_epochs()
+    return rec, launch_counts(), wall, torch.cuda.max_memory_allocated()
+
+
+def _expect_launches(got: dict, want: dict, what: str) -> None:
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
+    want = dict(dict.fromkeys(KERNELS, 0), **want)
+    print(f"{what}: launches {got}, expected {want}", flush=True)
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+
+
+def zoo_card_vs_cpu(dev) -> None:
+    """Each new loss on the card in float32 against the CPU in float64, value
+    and gradient, at the flagship's full-resolution shape (the
+    dense-contrastive losses on its projector's features), and
+    `sliding_miou` card against CPU."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import contrastive as dc
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import functional as fn
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import sliding_miou
+    gen = torch.Generator().manual_seed(22)
+    n, c, h, w = ZOO_SHAPE
+    logits = torch.randn(ZOO_SHAPE, generator=gen) * 2
+    rng = np.random.default_rng(22)
+    labels = torch.as_tensor(blocky_labels(rng, n, h, w, c + 1, 8))
+    features = torch.randn(FEATURE_SHAPE, generator=gen)
+    alpha = np.linspace(0.25, 2.0, c)
+    cases = {
+        "OhemCrossEntropy": (logits, lambda x, l: fn.ohem_cross_entropy(x, l, c)),
+        "FocalLoss": (logits, lambda x, l: fn.focal_loss(x, l, 2.0, alpha, c)),
+        "GenDiceLoss": (logits, lambda x, l: fn.generalized_dice(x, l, "auto")),
+        "SoftIoU": (logits, lambda x, l: fn.soft_iou(x, l)),
+        "DenseContrastiveLoss": (features, lambda x, l: dc.dense_contrastive_loss(x, l, 2)),
+        "DenseContrastiveLossV2": (features,
+                                   lambda x, l: dc.dense_contrastive_loss_v2(x, l, 2)),
+    }
+    failed = []
+    for name, (x, loss) in cases.items():
+        t = time.perf_counter()
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        vd = loss(xd, labels.to(dev))
+        vd.backward()
+        torch.cuda.synchronize()
+        xc = x.double().requires_grad_(True)
+        vc = loss(xc, labels)
+        vc.backward()
+        rel_v = abs(float(vd.detach()) - float(vc.detach())) / max(abs(float(vc.detach())),
+                                                                   1e-30)
+        rel_g = rel_l2(xd.grad.cpu().double(), xc.grad)
+        print(f"{name} card (float32) vs CPU (float64): value {float(vd.detach())!r} vs "
+              f"{float(vc.detach())!r} (relative {rel_v!r}), gradient relative L2 "
+              f"{rel_g!r}; {time.perf_counter() - t!r} s", flush=True)
+        if not (rel_v <= 1e-5 and rel_g <= 1e-4 and np.isfinite(rel_g)):
+            failed.append(name)
+        del xd, vd, xc, vc
+    got = sliding_miou(logits.to(dev), labels.to(dev)).cpu()
+    want = sliding_miou(logits, labels)
+    diff = float((got - want).abs().max())
+    print(f"sliding_miou card vs CPU at {tuple(logits.shape)}: max abs {diff!r}", flush=True)
+    if diff > 1e-6:
+        failed.append("sliding_miou")
+    if failed:
+        raise AssertionError(f"card and CPU disagree on {failed}")
+
+
+def phase22_contrastive_and_zoo(dev, data) -> dict:
+    """(a) The flagship recipe with the projector, the LossWrapper
+    {TwoScaleLoss, DenseContrastiveLoss, DenseContrastiveLossV2} at
+    dc_off_at_epoch 1 and the affine host warp, 2 epochs through the CLI;
+    (b) DeepLabv3+ with the crop and the loss zoo, 2 epochs through the
+    CLI; (c) the new losses and sliding_miou card against CPU, and the
+    host transforms' ms a frame. Returns the runs' launch counts."""
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_zoo_"))
+    logs = tmp / "logs"
+    n_valid_full = VALID_FRAMES // (8 if dev.type == "cuda" else 1)
+    out = {}
+    try:
+        cfg = json.loads(pathlib.Path(CONFIG).read_text())
+        cfg["graph"]["projector"] = CONTRASTIVE_PROJECTOR
+        cfg["loss"] = {"losses": {"TwoScaleLoss": 1, "DenseContrastiveLoss": 0.1,
+                                  "DenseContrastiveLossV2": 0.1},
+                       "TwoScaleLoss": cfg["loss"], "dc_off_at_epoch": 1}
+        cfg["data"]["transforms"] = cfg["data"]["transforms"] + ["affine"]
+        cfg["train"]["epochs"] = 2
+        rec, launches, wall, peak = _cli_run(data, logs, tmp, "contrastive", cfg, dev)
+        steps = len(rec.steps)
+        print(f"(a) contrastive recipe: {steps} steps, {wall!r} s wall in process, peak "
+              f"memory {peak} bytes", flush=True)
+        _expect_launches(launches, {"fu_hist": steps + 2 * n_valid_full,
+                                    "fu_grad": steps}, "(a) contrastive recipe")
+        v1, v2 = rec.step_values("DenseContrastiveLoss"), rec.step_values("DenseContrastiveLossV2")
+        print(f"(a) DenseContrastiveLoss by step (epoch, value): {v1}; "
+              f"DenseContrastiveLossV2: {v2}", flush=True)
+        if not (all(v > 0 for e, v in v1 if e == 0) and all(v == 0 for e, v in v1 if e >= 1)
+                and {e for e, _ in v1} == {0, 1}):
+            raise AssertionError("the V1 term is not on in epoch 0 and 0 from epoch 1")
+        if not all(v > 0 and np.isfinite(v) for _, v in v2) or \
+                not all(np.isfinite(v) for _, v in rec.step_values("loss")):
+            raise AssertionError("a contrastive step's loss is not finite")
+        out["contrastive"] = launches
+
+        cfg = json.loads(pathlib.Path(ROOT, "configs", "DeepLabv3Plus_rf_lvsz.json").read_text())
+        cfg["data"]["transforms"] = ["crop", "flip", "colorjitter", "torchvision_normalise"]
+        cfg["loss"] = {"losses": dict.fromkeys(ZOO_LOSSES, 1.0), "lovasz_impl": "bucket"}
+        cfg["train"]["epochs"] = 2
+        rec, launches, wall, peak = _cli_run(data, logs, tmp, "zoo", cfg, dev)
+        steps = len(rec.steps)
+        shapes = sorted({s for _, s, _ in rec.steps})
+        from miccai2021_cataract_semantic_segmentation_tpu_torch.data import png
+        height = png.png_dimensions(next(pathlib.Path(data).rglob("Images/*.png")))[0]
+        crop = int(32 * ((0.4 * height) // 32))
+        print(f"(b) loss zoo: {steps} steps of batches {shapes}, {wall!r} s wall in "
+              f"process, peak memory {peak} bytes; first and last step's terms "
+              f"{[{k: float(v) for k, v in m.items()} for _, _, m in (rec.steps[0], rec.steps[-1])]}",
+              flush=True)
+        if shapes != [(8, crop, crop, 3)]:
+            raise AssertionError(f"the crops reach the step as {shapes}, not {crop}x{crop}")
+        _expect_launches(launches, {"fu_hist": steps + 2 * n_valid_full,
+                                    "fu_grad": steps}, "(b) loss zoo")
+        if not all(np.isfinite(float(v)) for _, _, m in rec.steps for v in m.values()):
+            raise AssertionError("a loss-zoo step's term is not finite")
+        out["zoo"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    zoo_card_vs_cpu(dev)
+    out["warp_ms"] = host_warp_ms()
+    return out
+
+
+def check_semi_half(dev) -> dict:
+    """B3 and B4f on one half of the semi batch (SEMI_HALF_SHAPE, both
+    scales' rows in one B3, one B4f a scale, pseudo-ignore pixels at 30 %)
+    against their plain versions: the histograms bit-equal, the gradients
+    as phase 10b holds float32 (relative L2 <= 1e-6, largest difference
+    <= 1e-5 of the largest element); with their times at this shape."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        bucket_dlogits, bucket_dlogits_plain, bucket_histogram, bucket_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        grad_table, losses_and_tables)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_rows)
+    n, c, h, w = SEMI_HALF_SHAPE
+    gen = torch.Generator().manual_seed(23)
+    scales = [(torch.randn(SEMI_HALF_SHAPE, generator=gen) * s).to(dev) for s in (1.0, 2.0)]
+    rng = np.random.default_rng(23)
+    labels = blocky_labels(rng, n, h, w, c, 8)
+    labels[rng.random(labels.shape) < 0.3] = c           # below the threshold
+    labels = torch.as_tensor(labels).to(dev)
+    rows = [lovasz_rows(lg, labels, c) for lg in scales]
+    e = torch.cat([r[0] for r in rows]).contiguous()
+    fg = torch.cat([r[1] for r in rows]).contiguous()
+    hist = bucket_histogram(e, fg)
+    plain = bucket_histogram_plain(e, fg)
+    _, _, g_fg, g_bg = losses_and_tables(hist)
+    present = torch.cat([r[2] for r in rows])
+    table = grad_table(g_fg, g_bg, present / present.reshape(2, c).sum(1).repeat_interleave(c))
+    worst, grads_ok = 0.0, True
+    for s, lg in enumerate(scales):
+        sl = slice(s * c, (s + 1) * c)
+        got = bucket_dlogits(e[sl], fg[sl], table[sl], lg, per_image=False)
+        ref = bucket_dlogits_plain(e[sl], fg[sl], table[sl], lg, False)
+        max_abs = float((got - ref).abs().max())
+        rel = rel_l2(got, ref)
+        worst = max(worst, max_abs)
+        grads_ok &= rel <= 1e-6 and max_abs <= 1e-5 * float(ref.abs().max())
+        print(f"semi half, scale {s}: B4f relative L2 to plain {rel!r}, max abs {max_abs!r}",
+              flush=True)
+    equal = torch.equal(hist, plain)
+    print(f"semi half {SEMI_HALF_SHAPE}: B3 over {tuple(e.shape)} rows, histogram bit-equal "
+          f"to plain: {equal}", flush=True)
+    if not (equal and grads_ok):
+        raise AssertionError("B3/B4f disagree with their plain versions on the semi half")
+    lg = scales[0]
+    t = {"b3_ms": cuda_ms(lambda: bucket_histogram(e, fg)),
+         "b3_plain_ms": cuda_ms(lambda: bucket_histogram_plain(e, fg), reps=5),
+         "b4f_ms": cuda_ms(lambda: bucket_dlogits(e[:c], fg[:c], table[:c], lg,
+                                                  per_image=False)),
+         "b4f_plain_ms": cuda_ms(lambda: bucket_dlogits_plain(e[:c], fg[:c], table[:c],
+                                                              lg, False), reps=5)}
+    print(f"semi half timings (CUDA events): {t}", flush=True)
+    return dict(t, b4f_max_abs=worst)
+
+
+def _synthetic_moco(path, seed: int = 23) -> dict:
+    """A MoCo-v2 style checkpoint of a seeded ResNet-50 (the query encoder
+    under `module.encoder_q.`, its fc head, the queue) at `path`."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
+        ResNetBackbone)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        enc = ResNetBackbone("resnet50")
+    sd = {f"module.encoder_q.{k}": v for k, v in enc.state_dict().items()}
+    sd.update({"module.encoder_q.fc.0.weight": torch.zeros(2048, 2048),
+               "module.encoder_q.fc.2.weight": torch.zeros(128, 2048),
+               "module.queue": torch.zeros(128, 16)})
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save({"state_dict": sd, "epoch": 800, "arch": "resnet50"},
+               path / "moco_v2_800ep_pretrain.pth.tar")
+    return enc.state_dict()
+
+
+def phase23_semi(dev, data) -> dict:
+    """The flagship with the SemiSupervisedLoss over its TwoScaleLoss
+    (bucket Lovász, the generic route on each half) trained by
+    `Trainer.train` for 2 epochs, the tree's left-out frames as the
+    unlabelled pool: launches (B3 once a half and B4f once a scale a half
+    each step, B1 once a validation batch), B3/B4f against their plain
+    versions at the half-batch shape, the index streams, a resume, one
+    step's pseudo-labels against an explicit teacher pass that leaves
+    BatchNorm as it was, the semi step's time against the flagship's and
+    the teacher's share, and a MoCo-initialised run."""
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import (
+        SegDataset, load_frame_table, split_dataframes)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import (
+        assemble_batch)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import augment_batch
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        make_train_step, step_draws, teacher_labels)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
+
+    out = {"half": check_semi_half(dev)}
+    base = json.loads(pathlib.Path(CONFIG).read_text())
+    task, bs = int(base["data"]["experiment"]), int(base["data"]["batch_size"])
+    half = bs // 2
+    cfg = dict(base, loss={"name": "SemiSupervisedLoss", "labeled": base["loss"],
+                           "pseudo_threshold": SEMI_THRESHOLD},
+               train=dict(base["train"], epochs=2), log_every_n_epochs=1)
+    table = load_frame_table(data_path=str(data))
+    train_df, valid_df = split_dataframes(table, 2, blacklist=base["data"]["blacklist"])
+    pool_df = table.select(np.isin(table["vid_num"], POOL_VIDEOS))
+    sets = (SegDataset(train_df, task, str(data)), SegDataset(valid_df, task, str(data)),
+            train_df, valid_df, SegDataset(pool_df, task, str(data)))
+    n_valid_full = VALID_FRAMES // (8 if dev.type == "cuda" else 1)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_semi_"))
+    logs = tmp / "logs"
+
+    def run(run_id, epochs=2, **changes):
+        trainer = Trainer(dict(cfg, log_path=str(logs), run_id=run_id,
+                               train=dict(cfg["train"], epochs=2), **changes),
+                          sets, device=dev)
+        trainer.epochs = epochs
+        return trainer
+
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with _RunRecorder() as rec:
+            a = run("semi_a")
+            t = time.perf_counter()
+            a.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches, peak = launch_counts(), torch.cuda.max_memory_allocated()
+        rec.print_epochs()
+        steps = len(rec.steps)
+        print(f"semi run A: {steps} steps of batches "
+              f"{sorted({s for _, s, _ in rec.steps})}, {wall!r} s wall in process, peak "
+              f"memory {peak} bytes; labelled/unlabelled terms by step "
+              f"{[(round(float(m['labeled']), 6), round(float(m['unlabeled']), 6)) for _, _, m in rec.steps]}",
+              flush=True)
+        _expect_launches(launches, {"bucket_hist": 2 * steps, "bucket_dlogits": 4 * steps,
+                                    "fu_hist": 2 * n_valid_full}, "semi run A")
+        out["launches"] = launches
+        batches = np.concatenate([a.epoch_batches[e] for e in range(2)])
+        n_lab = len(train_df)
+        if not ((batches[:, :half] < n_lab).all() and (batches[:, half:] >= n_lab).all()
+                and (batches[:, half:] < n_lab + len(pool_df)).all()
+                and int(a.ind_counts.sum()) == half * steps == half * len(batches)):
+            raise AssertionError("the semi batches are not [labelled | unlabelled]")
+        # with random weights no pixel reaches the recipe's threshold, so the
+        # pseudo-labelled term is 0 and its half all ignored
+        if not all(np.isfinite(v) and v >= 0 for _, v in rec.step_values("unlabeled")):
+            raise AssertionError("a pseudo-labelled term is not finite")
+
+        # interrupted after epoch 0 and resumed from `last`
+        b = run("semi_b", epochs=1)
+        b.train()
+        b.close()
+        c = run("semi_b")
+        c.load_checkpoint("last")
+        c.train()
+        c.close()
+        apart = rel_l2(flat_floats(c.model.state_dict()), flat_floats(a.model.state_dict()))
+        same = all(np.array_equal(c.epoch_batches[e], a.epoch_batches[e]) for e in range(2))
+        print(f"semi resume: final weights relative L2 {apart!r} from run A; batches "
+              f"equal {same}", flush=True)
+        if not same:
+            raise AssertionError("the resumed run's batches differ from run A's")
+        if apart != 0:
+            r = run("semi_repeat")
+            r.train()
+            r.close()
+            spread = rel_l2(flat_floats(r.model.state_dict()), flat_floats(a.model.state_dict()))
+            print(f"semi repeat of A: relative L2 {spread!r}", flush=True)
+            if not 0 < apart <= 2 * spread:
+                raise AssertionError(f"the resumed run lies {apart!r} from A, the "
+                                     f"spread is {spread!r}")
+        del b, c
+
+        # one step's pseudo-labels against an explicit teacher pass, at the
+        # recipe's threshold and at the median of the teacher's confidence
+        spec = a.pipeline.device
+        images, labels, _ = assemble_batch(a._iter_set, a.epoch_batches[0][0])
+        images, labels = torch.as_tensor(images).to(dev), torch.as_tensor(labels).to(dev)
+        draws = step_draws(spec, bs, a.seed, a.state.step)
+        x, lbl = augment_batch(images, labels, spec, draws)
+        x = x.permute(0, 3, 1, 2).contiguous()
+        model = a.model
+
+        def explicit_teacher():
+            """The teacher's confidence and class a pixel, from an eval-mode
+            forward under the step's precision (each step moves the weights)."""
+            model.eval()
+            with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16,
+                                                 enabled=a.precision == "bf16"):
+                probs = torch.softmax(model(x[half:])["logits"].float(), dim=1)
+            model.train()
+            return probs.max(dim=1)
+
+        median = float(explicit_teacher()[0].median())
+        for threshold in (SEMI_THRESHOLD, median):
+            scores, classes = explicit_teacher()
+            want = torch.where(scores < threshold, a.num_classes, classes)
+            buffers = {k: v.clone() for k, v in model.state_dict().items()
+                       if "running" in k or "num_batches" in k}
+            pseudo = teacher_labels(model, x[half:], a.precision, threshold, a.num_classes)
+            kept = all(torch.equal(v, model.state_dict()[k]) for k, v in buffers.items())
+            debug_step = make_train_step(
+                a.loss_fn, spec, task, device=dev, precision=a.precision,
+                train_metrics="s8", seed=a.seed, debug_pred=True,
+                semi={"threshold": threshold, "ignore_id": a.num_classes})
+            m = debug_step(a.state, images, labels, 0, draws)
+            got = m["debug_lbl"].long()
+            off = int((pseudo != want).sum())
+            equal = (off == 0 and torch.equal(got[half:], pseudo)
+                     and torch.equal(got[:half], lbl[:half]))
+            share = float((want == a.num_classes).float().mean())
+            print(f"explicit teacher pass at threshold {threshold!r}: {off} pseudo-labels "
+                  f"of teacher_labels differ from its; the step's equal to both {equal} "
+                  f"({share!r} of the pseudo pixels below it); "
+                  f"BatchNorm buffers unchanged by the teacher {kept}; model in train "
+                  f"mode {model.training}; the step's terms labelled "
+                  f"{float(m['labeled'])!r}, unlabelled {float(m['unlabeled'])!r}",
+                  flush=True)
+            if not (equal and kept and model.training):
+                raise AssertionError("the teacher pass and the step's pseudo-labels disagree")
+        if not 0 < share < 1 or not float(m["unlabeled"]) > 0:
+            raise AssertionError("at the median confidence the pseudo half is not mixed")
+
+        # the semi step against the flagship's on one batch, and the teacher
+        plain_step = make_train_step(build_loss(base["loss"], task, dev), spec, task,
+                                     device=dev, precision=a.precision, train_metrics="s8",
+                                     seed=a.seed)
+        semi_step = make_train_step(a.loss_fn, spec, task, device=dev, precision=a.precision,
+                                    train_metrics="s8", seed=a.seed,
+                                    semi={"threshold": SEMI_THRESHOLD,
+                                          "ignore_id": a.num_classes})
+        lab_images, lab_labels, _ = assemble_batch(sets[0], np.arange(bs))
+        lab_images = torch.as_tensor(lab_images).to(dev)
+        lab_labels = torch.as_tensor(lab_labels).to(dev)
+        # at the median the pseudo half is mixed, so B3/B4f and the loss count
+        # its pixels, where at the recipe's threshold they are all ignored
+        mixed_step = make_train_step(a.loss_fn, spec, task, device=dev,
+                                     precision=a.precision, train_metrics="s8",
+                                     seed=a.seed, semi={"threshold": median,
+                                                        "ignore_id": a.num_classes})
+        step_fns = {"plain": lambda: plain_step(a.state, lab_images, lab_labels, 0),
+                    "semi": lambda: semi_step(a.state, images, labels, 0),
+                    "semi_mixed": lambda: mixed_step(a.state, images, labels, 0)}
+        timing = {}
+        for name in ("plain", "semi", "semi_mixed", "semi_mixed", "semi", "plain"):
+            timing.setdefault(name, []).append(cuda_ms(step_fns[name], 5, 1))
+        teacher_ms = cuda_ms(lambda: teacher_labels(model, x[half:], a.precision,
+                                                     SEMI_THRESHOLD, a.num_classes), 5, 1)
+        mean = {k: statistics.mean(v) for k, v in timing.items()}
+        print(f"train step (CUDA events, median of 5, in turns plain/semi/semi_mixed/"
+              f"semi_mixed/semi/plain): semi at {SEMI_THRESHOLD} {timing['semi']} ms, "
+              f"semi at the median {median!r} {timing['semi_mixed']} ms, flagship "
+              f"{timing['plain']} ms; teacher pass {teacher_ms!r} ms = "
+              f"{teacher_ms / mean['semi']!r} of the semi step at {SEMI_THRESHOLD}, "
+              f"{teacher_ms / mean['semi_mixed']!r} at the median", flush=True)
+        out.update(semi_ms=mean["semi"], semi_mixed_ms=mean["semi_mixed"],
+                   plain_ms=mean["plain"], teacher_ms=teacher_ms, peak=peak)
+        a.close()
+        del a, model, debug_step, semi_step, mixed_step, plain_step
+
+        # a MoCo-initialised run from a synthetic checkpoint
+        moco = _synthetic_moco(tmp / "ss" / "moco")
+        t = run("semi_moco", epochs=1, graph=dict(cfg["graph"], ss_pretrained="moco"),
+                ss_pretrained_path=str(tmp / "ss"))
+        sd = t.model.state_dict()
+        copied = [k for k in moco if not k.endswith("num_batches_tracked")]
+        if not all(torch.equal(sd[f"backbone.{k}"].cpu(), moco[k]) for k in copied):
+            raise AssertionError("the MoCo tensors did not reach the backbone")
+        metrics = t.train()
+        t.close()
+        print(f"MoCo-initialised run: {len(copied)} backbone tensors from the checkpoint; "
+              f"validation {metrics['valid_loss']!r}, train loss "
+              f"{t.train_metrics['loss']!r}", flush=True)
+        if not np.isfinite(t.train_metrics["loss"]):
+            raise AssertionError("the MoCo-initialised run's loss is not finite")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2661,6 +3237,18 @@ def main() -> int:
     trainer_launches = phase(21, phase21_train_from_disk, dev)
     b1["trainer_train_launches"] = trainer_launches["fu_hist"]
     b2["trainer_train_launches"] = trainer_launches["fu_grad"]
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="cadis_semi_tree_") as tree:
+        data = write_semi_tree(pathlib.Path(tree) / "data")
+        zoo = phase(22, phase22_contrastive_and_zoo, dev, data)
+        semi = phase(23, phase23_semi, dev, data)
+    for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
+        rec["contrastive_launches"] = zoo["contrastive"][key]
+        rec["zoo_launches"] = zoo["zoo"][key]
+    for rec, key, k in ((b3, "bucket_hist", "b3"), (b4f, "bucket_dlogits", "b4f")):
+        rec["semi_launches"] = semi["launches"][key]
+        rec["semi_half_ms"] = semi["half"][f"{k}_ms"]
+        rec["semi_half_plain_ms"] = semi["half"][f"{k}_plain_ms"]
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
@@ -2675,7 +3263,12 @@ def main() -> int:
           "B5/B6: OCRNet on the v3 route, B7/B8: DeepLabv3 on the v3 route), "
           "over the flagship's Trainer.train from disk (B1/B2: "
           f"{trainer_launches['fu_hist']}/{trainer_launches['fu_grad']}, "
-          "'trainer_train_launches') "
+          "'trainer_train_launches'), over the contrastive recipe and the loss "
+          f"zoo through the CLI (B1/B2: {zoo['contrastive']['fu_hist']}/"
+          f"{zoo['contrastive']['fu_grad']} and {zoo['zoo']['fu_hist']}/"
+          f"{zoo['zoo']['fu_grad']}), over the semi-supervised Trainer.train "
+          f"(B3/B4f: {semi['launches']['bucket_hist']}/"
+          f"{semi['launches']['bucket_dlogits']}, 'semi_launches') "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

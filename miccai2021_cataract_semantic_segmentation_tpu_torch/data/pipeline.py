@@ -8,8 +8,9 @@ runs on the card, ops/augment.py); a worker thread assembles the next
 batches into pinned host memory and copies them to the card on a side
 stream while the current one runs. The consumer's stream waits on the
 copy's event and each tensor is recorded on that stream, so a batch is
-neither read before it lands nor freed while it is in use. No host
-transform is ported (ROADMAP Queue A item 7), so batches go through none.
+neither read before it lands nor freed while it is in use. A train
+pipeline's host transforms (data/transforms.py) run per sample on the
+worker thread, each sample with its own generator seeded from the epoch's.
 """
 from __future__ import annotations
 
@@ -34,21 +35,32 @@ def pad_or_trim_batches(batches: np.ndarray, steps: int | None) -> np.ndarray:
     return np.concatenate([batches] * reps)[:steps]
 
 
-def assemble_batch(dataset, indices):
+def assemble_batch(dataset, indices, pipeline=None,
+                   rng: np.random.Generator | None = None):
     """Stack dataset items into (images u8 NHWC, labels u8 NHW, idx i32 N).
 
-    Where the dataset has `load_batch` (SegDataset's native decode and
-    remap of a whole batch) and it gives a batch, that is the batch;
-    otherwise each sample is read from the dataset in turn (data/png.py
-    for a SegDataset), as the JAX package reads them. `dataset.DECODED`
-    counts the batches of each decoder."""
-    native = dataset.load_batch(indices) if hasattr(dataset, "load_batch") else None
+    Where no host transform is active and the dataset has `load_batch`
+    (SegDataset's native decode and remap of a whole batch) and it gives a
+    batch, that is the batch; otherwise each sample is read from the
+    dataset in turn (data/png.py for a SegDataset), as the JAX package
+    reads them, and goes through `pipeline`'s host transforms with its own
+    `np.random.default_rng(seed)`, the seeds drawn from `rng` up front
+    (`rng.integers(0, 2**63 - 1, len(indices))`; 0, 1, ... without `rng`).
+    `dataset.DECODED` counts the batches of each decoder."""
+    host_tf = pipeline is not None and pipeline.host_train
+    native = dataset.load_batch(indices) \
+        if not host_tf and hasattr(dataset, "load_batch") else None
     if native is not None:
         DECODED["native"] += 1
         imgs, lbls = native
         return imgs, lbls, np.asarray(indices, dtype=np.int32)
 
     items = [dataset[int(i)][:2] for i in indices]
+    if host_tf:
+        seeds = rng.integers(0, 2**63 - 1, size=len(indices)) if rng is not None \
+            else np.arange(len(indices))
+        items = [pipeline.apply_host(img, lbl, np.random.default_rng(seed))
+                 for (img, lbl), seed in zip(items, seeds)]
     if getattr(dataset, "decodes", False):
         DECODED["png"] += 1
     return (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]),
@@ -141,14 +153,17 @@ class Prefetcher:
 
 
 def epoch_iterator(dataset, batches, device: str | torch.device = "cuda",
-                   prefetch: int = 2):
+                   prefetch: int = 2, pipeline=None, seed: int = 0):
     """Yield (images u8 NHWC, labels u8 NHW, idx i32) tensors on `device`
-    for each index batch of `batches`, in order."""
+    for each index batch of `batches`, in order; `pipeline`'s host
+    transforms draw from `np.random.default_rng(seed)` (the Trainer's seed
+    plus the epoch, so a resumed epoch draws what it drew)."""
     dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
 
     def gen():
         for idx in batches:
-            yield assemble_batch(dataset, idx)
+            yield assemble_batch(dataset, idx, pipeline, rng)
 
     if prefetch > 0:
         pf = Prefetcher(gen(), dev, depth=prefetch)

@@ -23,14 +23,25 @@ steps). Routes of the port:
     route (losses/bucket_lovasz.py, kernels B3/B4) on full-resolution
     logits;
   * CrossEntropyLoss (also what an empty loss section means, and the
-    TwoScaleLoss's default pair): `losses/functional.py:cross_entropy` on
-    the full-resolution logits, with the task's ignore id (or
-    `ignore_index`) and the optional class `weights`;
+    TwoScaleLoss's default pair), OhemCrossEntropy, FocalLoss,
+    GenDiceLoss and SoftIoU: `losses/functional.py` on the
+    full-resolution logits, with the JAX package's defaults (the task's
+    ignore id or `ignore_index` for cross-entropy and OHEM, `thresh` 0.7,
+    `min_kept` 100,000, `gamma` 2, Focal's own `ignore_index` -1); a
+    TwoScaleLoss of any other pair sums its two terms;
   * the LossWrapper (`{"losses": {name: weight}}`, the EncDec configs'
-    form): the weighted sum of its TwoScaleLoss and LovaszSoftmax terms,
-    each routed as above with its options from `cfg.get(name, cfg)`, and
-    the Lovász term zeroed while `epoch < dc_off_at_epoch`.
-Every other loss raises NotImplementedError naming its ROADMAP item.
+    form): the weighted sum of its terms, each routed as above with its
+    options from `cfg.get(name, cfg)`; the Lovász term zeroed while
+    `epoch < dc_off_at_epoch`; DenseContrastiveLoss (zeroed from
+    `dc_off_at_epoch` on) and DenseContrastiveLossV2 (never gated) on the
+    model's `proj_features`, else its `deep_features` with a warning
+    (losses/contrastive.py);
+  * SemiSupervisedLoss: the named loss on the labelled first half of the
+    batch and on the pseudo-labelled second half, below-threshold pseudo
+    pixels (id = the task's class count) excluded; a TwoScaleLoss there
+    reads the full-resolution logits of both scales, as the JAX package
+    passes no stride-8 logits to it, so a bucket Lovász takes the generic
+    route (B3, and B4f in the backward), one launch per half.
 """
 from __future__ import annotations
 
@@ -68,11 +79,6 @@ def _dither_seed_of(cfg: dict, step):
     if not cfg.get("lovasz_dither", False):
         return None
     return step if step is not None else 0
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
-                               f"{item})")
 
 
 def _at_label_size(logits, labels):
@@ -115,23 +121,36 @@ def _maybe_fused_single_lovasz(cfg: dict, outputs: dict, labels, step=None):
 
 def _single_loss(name: str, cfg: dict, task: int):
     """A (logits, labels) -> scalar closure for one named loss."""
-    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
-        cross_entropy, lovasz_softmax)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import functional as fn
+    # cfg["ignore_index"] overrides the task's ignore id (the semi-supervised
+    # loss sets it to the pseudo-labels' ignore id, also on task 1)
+    ign = cfg.get("ignore_index", taxonomy.ignore_index(task))
     if name == "CrossEntropyLoss":
-        # cfg["ignore_index"] overrides the task's ignore id
-        ign = cfg.get("ignore_index", taxonomy.ignore_index(task))
         w = cfg.get("weights")
-        return lambda lg, lb: cross_entropy(lg, lb, ignore_index=ign,
-                                            class_weights=w)
-    if name != "LovaszSoftmax":
-        raise _not_ported(f"loss '{name}'", "item 11 (the remaining losses)")
-    _warn_bucket_dial(cfg)
-    return lambda lg, lb: lovasz_softmax(
-        lg, lb,
-        classes_to_consider=cfg.get("classes_to_consider", "present"),
-        classes_to_ignore=cfg.get("classes_to_ignore"),
-        per_image=cfg.get("per_image", False),
-        impl=cfg.get("lovasz_impl", "sort"))
+        return lambda lg, lb: fn.cross_entropy(lg, lb, ignore_index=ign,
+                                               class_weights=w)
+    if name == "LovaszSoftmax":
+        _warn_bucket_dial(cfg)
+        return lambda lg, lb: fn.lovasz_softmax(
+            lg, lb,
+            classes_to_consider=cfg.get("classes_to_consider", "present"),
+            classes_to_ignore=cfg.get("classes_to_ignore"),
+            per_image=cfg.get("per_image", False),
+            impl=cfg.get("lovasz_impl", "sort"))
+    if name == "OhemCrossEntropy":
+        return lambda lg, lb: fn.ohem_cross_entropy(
+            lg, lb, ignore_index=ign, thresh=cfg.get("thresh", 0.7),
+            min_kept=max(1, cfg.get("min_kept", 100_000)))
+    if name == "FocalLoss":
+        return lambda lg, lb: fn.focal_loss(
+            lg, lb, gamma=cfg.get("gamma", 2.0), alpha=cfg.get("alpha"),
+            ignore_index=cfg.get("ignore_index", -1))
+    if name == "GenDiceLoss":
+        return lambda lg, lb: fn.generalized_dice(
+            lg, lb, weights=cfg.get("weights"), naive=cfg.get("naive", False))
+    if name == "SoftIoU":
+        return lambda lg, lb: fn.soft_iou(lg, lb, naive=cfg.get("naive", False))
+    raise ValueError(f"Loss '{name}' not recognised")
 
 
 def build_two_scale(cfg: dict, task: int):
@@ -217,22 +236,59 @@ def _single_term(name: str, cfg: dict, task: int):
     return fn
 
 
-def _gated_off_before(v: torch.Tensor, epoch, off_at) -> torch.Tensor:
-    """`v`, or 0 while `epoch < off_at`. Both sides are computed, as the JAX
-    package's `jnp.where` computes them. A tensor `epoch` is compared where
-    it lies; a Python one on the host, its flag then filled on the device
-    (no host-to-device copy, so no sync)."""
+def _gated(v: torch.Tensor, epoch, off_at, before: bool) -> torch.Tensor:
+    """`v`, or 0 while `epoch < off_at` (`before`) or from `off_at` on (not
+    `before`). Both sides are computed, as the JAX package's `jnp.where`
+    computes them. A tensor `epoch` is compared where it lies; a Python one
+    on the host, its flag then filled on the device (no host-to-device
+    copy, so no sync)."""
     if isinstance(epoch, torch.Tensor):
-        off = (epoch < off_at).to(v.device)
+        off = ((epoch < off_at) if before else (epoch >= off_at)).to(v.device)
     else:
-        off = torch.full((), epoch < off_at, dtype=torch.bool, device=v.device)
+        off = torch.full((), (epoch < off_at) == before, dtype=torch.bool,
+                         device=v.device)
     return torch.where(off, torch.zeros_like(v), v)
+
+
+_DC_NAMES = ("DenseContrastiveLoss", "DenseContrastiveLossV2")
+
+
+def _dense_contrastive_term(name: str, cfg: dict, task: int):
+    """fn(outputs, labels) of a dense-contrastive term on the projector's
+    `proj_features` (the reference's OCRNet_Manager.py:82-84), else on the
+    model's `deep_features` (its EncDec manager's), with a warning: the
+    un-projected backbone features are another recipe."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.contrastive import (
+        dense_contrastive_loss, dense_contrastive_loss_v2)
+
+    def fn(outputs, labels):
+        feats = outputs.get("proj_features")
+        if feats is None:
+            feats = outputs.get("deep_features")
+            if feats is None:
+                raise ValueError(f"{name} needs 'proj_features' or "
+                                 "'deep_features' in the model outputs")
+            warnings.warn(
+                f"{name}: no 'proj_features' in model outputs — falling back "
+                "to raw 'deep_features' (add a 'projector' section to the "
+                "graph config for the projected recipe)", stacklevel=3)
+        if name == "DenseContrastiveLoss":
+            return dense_contrastive_loss(feats, labels, task,
+                                          temperature=cfg.get("temperature", 0.1))
+        return dense_contrastive_loss_v2(feats, labels, task,
+                                         temperature=cfg.get("temperature", 0.1),
+                                         anchor_stride=cfg.get("anchor_stride", 4))
+
+    fn.full_res = ()
+    return fn
 
 
 def _loss_wrapper(cfg: dict, task: int, check):
     """The LossWrapper (losses/LossWrapper.py of the reference): the sum of
     weight * term over `cfg["losses"]`; the LovaszSoftmax term is zero
-    while `epoch < dc_off_at_epoch` (ungated when either is None)."""
+    while `epoch < dc_off_at_epoch`, DenseContrastiveLoss from
+    `dc_off_at_epoch` on (ungated when either is None), and
+    DenseContrastiveLossV2 is never gated (LossWrapper.py:45-58)."""
     weightings = cfg["losses"]
     dc_off_at = cfg.get("dc_off_at_epoch")
     terms = {}
@@ -240,8 +296,9 @@ def _loss_wrapper(cfg: dict, task: int, check):
         sub = cfg.get(lname, cfg)
         if lname == "TwoScaleLoss":
             terms[lname] = build_two_scale(sub, task)
-        elif lname in ("DenseContrastiveLoss", "DenseContrastiveLossV2"):
-            raise _not_ported(f"loss '{lname}'", "item 11 (the remaining losses)")
+        elif lname in _DC_NAMES:
+            terms[lname] = _dense_contrastive_term(
+                lname, sub if isinstance(sub, dict) else cfg, task)
         else:
             terms[lname] = _single_term(lname, sub, task)
 
@@ -254,11 +311,16 @@ def _loss_wrapper(cfg: dict, task: int, check):
                                  labels,
                                  interm_s8=outputs.get("interm_logits_s8"),
                                  final_s8=outputs.get("logits_s8"), step=step)
+            elif lname in _DC_NAMES:
+                v = terms[lname](outputs, labels)
+                if lname == "DenseContrastiveLoss" and dc_off_at is not None \
+                        and epoch is not None:
+                    v = _gated(v, epoch, dc_off_at, before=False)
             else:
                 v = terms[lname](outputs, labels, step)
                 if lname == "LovaszSoftmax" and dc_off_at is not None \
                         and epoch is not None:
-                    v = _gated_off_before(v, epoch, dc_off_at)
+                    v = _gated(v, epoch, dc_off_at, before=True)
             vals[lname] = v * weight
             total = total + vals[lname]
         return total, vals
@@ -266,6 +328,66 @@ def _loss_wrapper(cfg: dict, task: int, check):
     wrapper_fn.full_res = tuple(dict.fromkeys(
         k for fn in terms.values() for k in fn.full_res))
     return wrapper_fn
+
+
+def build_semi_supervised(cfg: dict, task: int):
+    """SemiSupervisedLoss (the reference's losses/SemiSupervisedLoss.py):
+    the `labeled` loss on the first half of the batch and the `unlabeled`
+    one (the same name; `labeled`'s options unless given) on the second,
+    with their weights; returns fn(outputs, labels, epoch, step) -> (total,
+    {"labeled", "unlabeled"}) with its `full_res`. Below-threshold
+    pseudo-label pixels carry the task's class count (ops/misc.py:
+    `clipped_argmax`) and are excluded on every task: cross-entropy, OHEM
+    and Focal take it as `ignore_index`, Lovász as `classes_to_ignore`, a
+    TwoScaleLoss on both of its terms; GenDice and SoftIoU, which have no
+    ignore mechanism, are refused."""
+    lab_cfg = dict(cfg.get("labeled", {"name": "CrossEntropyLoss"}))
+    ulab_cfg = dict(cfg.get("unlabeled", lab_cfg))
+    num_classes = taxonomy.TASK_NUM_CLASSES[task]
+
+    def set_pseudo_ignore(c: dict) -> None:
+        name = c.get("name", "CrossEntropyLoss")
+        if name in ("CrossEntropyLoss", "OhemCrossEntropy", "FocalLoss"):
+            c.setdefault("ignore_index", num_classes)
+        elif name == "LovaszSoftmax":
+            c.setdefault("classes_to_ignore", num_classes)
+        elif name == "TwoScaleLoss":
+            for sub in ("interm", "final"):
+                c[sub] = dict(c.get(sub, {"name": "LovaszSoftmax"}))
+                set_pseudo_ignore(c[sub])
+        else:
+            raise NotImplementedError(
+                f"SemiSupervisedLoss with '{name}' is unsupported: the loss "
+                "has no ignore mechanism for below-threshold pseudo-label "
+                "pixels")
+
+    for c in (lab_cfg, ulab_cfg):
+        set_pseudo_ignore(c)
+    if lab_cfg["name"] != ulab_cfg["name"]:
+        raise NotImplementedError(
+            f"different labelled/unlabelled losses ({lab_cfg['name']} vs "
+            f"{ulab_cfg['name']}) are not supported (SemiSupervisedLoss.py:37)")
+    w_lab, w_ulab = lab_cfg.get("weight", 1.0), ulab_cfg.get("weight", 1.0)
+    two_scale = lab_cfg["name"] == "TwoScaleLoss"
+    if two_scale:
+        lab_fn, ulab_fn = build_two_scale(lab_cfg, task), build_two_scale(ulab_cfg, task)
+    else:
+        lab_fn = _single_loss(lab_cfg["name"], lab_cfg, task)
+        ulab_fn = _single_loss(ulab_cfg["name"], ulab_cfg, task)
+
+    def semi_fn(outputs, labels, epoch=None, step=None):
+        h = labels.shape[0] // 2
+        if two_scale:
+            interm, final = _interm(outputs.get("interm_logits")), outputs["logits"]
+            v_lab = lab_fn(interm[:h], final[:h], labels[:h], step=step)
+            v_ulab = ulab_fn(interm[h:], final[h:], labels[h:], step=step)
+        else:
+            lg = outputs["logits"]
+            v_lab, v_ulab = lab_fn(lg[:h], labels[:h]), ulab_fn(lg[h:], labels[h:])
+        return w_lab * v_lab + w_ulab * v_ulab, {"labeled": v_lab, "unlabeled": v_ulab}
+
+    semi_fn.full_res = ("interm_logits", "logits") if two_scale else ("logits",)
+    return semi_fn
 
 
 def build_loss(loss_config: dict, task: int,
@@ -298,7 +420,14 @@ def build_loss(loss_config: dict, task: int,
     if name == "LossWrapper":
         return _loss_wrapper(cfg, task, check)
     if name == "SemiSupervisedLoss":
-        raise _not_ported("the SemiSupervisedLoss", "item 11")
+        semi = build_semi_supervised(cfg, task)
+
+        def semi_loss_fn(outputs, labels, epoch=None, step=None):
+            check(labels)
+            return semi(outputs, labels, epoch=epoch, step=step)
+
+        semi_loss_fn.full_res = semi.full_res
+        return semi_loss_fn
     term = _single_term(name, cfg, task)
 
     def single_fn(outputs, labels, epoch=None, step=None):

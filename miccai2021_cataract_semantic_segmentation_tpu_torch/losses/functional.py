@@ -1,8 +1,8 @@
-"""Cross-entropy, and Lovász-Softmax on full-resolution logits: the exact
-sort route and the generic bucket route.
+"""Cross-entropy, Lovász-Softmax on full-resolution logits (the exact sort
+route and the generic bucket route), OHEM cross-entropy, Focal loss,
+generalised Dice and soft IoU.
 
-Port of `cross_entropy` and the Lovász section of the JAX package's
-losses/functional.py.
+Port of the JAX package's losses/functional.py.
 Logits are NCHW (the JAX package's are NHWC) and labels NHW; the class
 rows are built directly in the (C, P) layout with P ordered (n, h, w), the
 order of the JAX package's flattened NHWC pixels. Pixels of
@@ -254,3 +254,114 @@ def fused_two_scale_lovasz(interm_logits: torch.Tensor,
     loss_i = _mean_over(per_class[:c], pr_i)
     loss_f = _mean_over(per_class[c:], pr_f)
     return w_interm * loss_i + w_final * loss_f
+
+
+# ---------------------------------------------------------------------------
+# OHEM cross-entropy, Focal, generalised Dice, soft IoU: plain PyTorch on the
+# full-resolution logits, in float32 (float64 for float64 logits)
+# ---------------------------------------------------------------------------
+
+def _acc(logits: torch.Tensor) -> torch.Tensor:
+    return logits.to(torch.promote_types(logits.dtype, torch.float32))
+
+
+def _gt_class(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int):
+    """(labels clipped to [0, C-1], the valid mask): `ignore_index` < 0
+    ignores nothing, as the JAX package's losses."""
+    lbl = labels.to(torch.int64)
+    valid = lbl != ignore_index if ignore_index >= 0 else torch.ones_like(lbl, dtype=torch.bool)
+    return lbl.clamp(0, logits.shape[1] - 1), valid
+
+
+def _one_hot_real_classes(labels: torch.Tensor, num_classes: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """(N, C, H, W) one-hot over the real classes; a label outside 0..C-1
+    (the ignore id C) gives an all-zero column (GenDiceLoss.py:22-27)."""
+    cls = torch.arange(num_classes, device=labels.device)[None, :, None, None]
+    return (labels.to(torch.int64)[:, None] == cls).to(dtype)
+
+
+def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -1, thresh: float = 0.7,
+                       min_kept: int = 100_000) -> torch.Tensor:
+    """Online hard-example mining cross-entropy (the reference's
+    losses/OhemCrossEntropy.py), as the JAX package computes it: the
+    ground-truth class's probability of every valid pixel (2.0 for an
+    invalid one, so that it never passes), the threshold max(`thresh`, the
+    k-th smallest of them) with k = min(`min_kept`, valid pixels - 1)
+    clipped to the pixels, and the mean cross-entropy of the valid pixels
+    below it. The threshold is taken from a sort on the device (no host
+    read); no gradient flows through it."""
+    x = _acc(logits)
+    safe, valid = _gt_class(x, labels, ignore_index)
+    nll = -torch.gather(torch.log_softmax(x, dim=1), 1, safe[:, None])[:, 0]
+    with torch.no_grad():
+        p_gt = torch.gather(torch.softmax(x, dim=1), 1, safe[:, None])[:, 0]
+        p_gt = torch.where(valid, p_gt, torch.full_like(p_gt, 2.0)).reshape(-1)
+        k = torch.clamp(torch.clamp(valid.sum() - 1, max=int(min_kept)), 0,
+                        p_gt.numel() - 1)
+        min_value = torch.sort(p_gt).values.gather(0, k.reshape(1))[0]
+        keep = valid & (p_gt.reshape(valid.shape) < torch.clamp(min_value, min=thresh))
+    kw = keep.to(nll.dtype)
+    return torch.sum(nll * kw) / torch.clamp(torch.sum(kw), min=1.0)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
+               alpha=None, ignore_index: int = -1) -> torch.Tensor:
+    """Focal loss (the reference's losses/FocalLoss.py): the mean over
+    valid pixels of -(1 - p_t)^gamma log p_t, log p_t weighted by the
+    per-class `alpha` where given."""
+    x = _acc(logits)
+    safe, valid = _gt_class(x, labels, ignore_index)
+    logpt = torch.gather(torch.log_softmax(x, dim=1), 1, safe[:, None])[:, 0]
+    pt = torch.exp(logpt)
+    if alpha is not None:
+        logpt = logpt * torch.as_tensor(alpha, dtype=x.dtype, device=x.device)[safe]
+    loss = -((1.0 - pt) ** gamma) * logpt
+    v = valid.to(x.dtype)
+    return torch.sum(loss * v) / torch.clamp(torch.sum(v), min=1.0)
+
+
+def _mean_present(frac: torch.Tensor, denom: torch.Tensor, naive: bool) -> torch.Tensor:
+    if naive:
+        return torch.mean(frac)
+    present = (denom != 0).to(frac.dtype)
+    return torch.sum(frac * present) / torch.clamp(torch.sum(present), min=1.0)
+
+
+def generalized_dice(logits: torch.Tensor, labels: torch.Tensor, weights=None,
+                     naive: bool = False) -> torch.Tensor:
+    """Generalised Dice loss (Sudre et al. 2017; the reference's
+    losses/GenDiceLoss.py): 1 - 2 * the mean over present classes of
+    sum(w p t) / sum(w (p + t)); `weights` "auto" is 1 / (pixels of the
+    class)^2, a list is taken as it is; `naive` averages over all classes."""
+    x = _acc(logits)
+    pred = torch.softmax(x, dim=1)
+    target = _one_hot_real_classes(labels, x.shape[1], x.dtype)
+    dims = (0, 2, 3)
+    dividend = torch.sum(pred * target, dim=dims)
+    divisor = torch.sum(pred + target, dim=dims)
+    if weights is not None:
+        if isinstance(weights, str) and weights == "auto":
+            w = torch.sum(target, dim=dims) ** 2
+            w = 1.0 / torch.where(w == 0, torch.ones_like(w), w)
+        else:
+            w = torch.as_tensor(weights, dtype=x.dtype, device=x.device)
+        dividend = dividend * w
+        divisor = divisor * w
+    frac = dividend / torch.where(divisor == 0, torch.ones_like(divisor), divisor)
+    return 1.0 - 2.0 * _mean_present(frac, divisor, naive)
+
+
+def soft_iou(logits: torch.Tensor, labels: torch.Tensor,
+             naive: bool = False) -> torch.Tensor:
+    """Soft (probabilistic) IoU (the reference's losses/SoftIoU.py): minus
+    the mean over present classes of sum(p t) / sum(p + t - p t)."""
+    x = _acc(logits)
+    pred = torch.softmax(x, dim=1)
+    target = _one_hot_real_classes(labels, x.shape[1], x.dtype)
+    dims = (0, 2, 3)
+    inter = torch.sum(pred * target, dim=dims)
+    union = torch.sum(pred + target - pred * target, dim=dims)
+    frac = inter / torch.where(union == 0, torch.ones_like(union), union)
+    return -_mean_present(frac, union, naive)

@@ -9,6 +9,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models.deeplab import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.encdec import EncDec  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import HRNetv2  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import OCRNet  # noqa: F401
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import Projector  # noqa: F401
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (  # noqa: F401
     ResNetBackbone, output_channels)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.upernet import UPerNetDecoder  # noqa: F401
@@ -22,7 +23,8 @@ def _construct(name: str, graph: dict, task: int) -> torch.nn.Module:
     if name == "OCRNet":
         return OCRNet(task=task, backbone=graph.get("backbone", "resnet101"),
                       out_stride=graph.get("out_stride", 8),
-                      dropout=graph.get("dropout", 0.0))
+                      dropout=graph.get("dropout", 0.0),
+                      projector=graph.get("projector"))
     if name == "EncDec":
         return EncDec(task, graph.get("encoder"), graph.get("decoder"),
                       graph.get("projector"))
@@ -33,7 +35,8 @@ def _construct(name: str, graph: dict, task: int) -> torch.nn.Module:
     cls = DeepLabv3 if name == "DeepLabv3" else DeepLabv3Plus
     return cls(task=task, backbone=graph.get("backbone", "resnet50"),
                out_stride=graph.get("out_stride", 16),
-               c_aspp=graph.get("aspp", {}).get("channels", 256))
+               c_aspp=graph.get("aspp", {}).get("channels", 256),
+               projector=graph.get("projector"))
 
 
 def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
@@ -45,11 +48,9 @@ def build_model(graph: dict, task: int, device: str | torch.device = "cuda",
     if name not in _PORTED:
         raise NotImplementedError(f"graph '{name}' is not ported yet (ROADMAP "
                                   "Queue A item 12: the remaining graphs)")
-    if name != "HRNetv2" and (graph.get("backbone", "").startswith("hrnetv2")
-                              or graph.get("projector") is not None):
+    if name != "HRNetv2" and graph.get("backbone", "").startswith("hrnetv2"):
         raise NotImplementedError(
-            f"{name} on HRNet and the projector branch are not ported yet "
-            "(ROADMAP Queue A item 12)")
+            f"{name} on HRNet is not ported yet (ROADMAP Queue A item 12)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = _construct(name, graph, task)

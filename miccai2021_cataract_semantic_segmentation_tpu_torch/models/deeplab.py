@@ -16,8 +16,9 @@ the projection is `aspp.conv2` / `aspp.bn2`; the classifier is `conv_out`
     eps 3e-4 and the default momentum.
 Outputs: `logits_s8` (the classifier's output in >= f32: stride 8 for v3
 at out_stride 8, stride 4 for v3+ whatever the name says), `deep_features`
-(layer 4), and `logits` (the align_corners=True upsample to the input
-size) when `full_res` asks for it.
+(layer 4), `logits` (the align_corners=True upsample to the input size)
+when `full_res` asks for it, and with a `projector` section
+`proj_features`, the projection head (models/projector.py) on layer 4.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from torch import nn
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
     batch_norm, global_avg_pool, to_f32, upsample_like)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import (
+    build_projector)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
     ResNetBackbone, output_channels)
 
@@ -96,11 +99,13 @@ class Decoder(nn.Module):
 class _DeepLab(nn.Module):
     """The dilated backbone and the ASPP; a subclass adds its head."""
 
-    def __init__(self, backbone: str, out_stride: int, c_aspp: int):
+    def __init__(self, backbone: str, out_stride: int, c_aspp: int,
+                 projector: dict | None):
         super().__init__()
         self.backbone = ResNetBackbone(backbone, dilate_stages(out_stride))
         self.aspp = ASPP(output_channels(backbone)[3], c_aspp,
                          1 if out_stride >= 16 else 2)
+        self.projector = build_projector(projector, output_channels(backbone)[3])
 
     def forward(self, x: torch.Tensor,
                 full_res: tuple[str, ...] = ("logits",)) -> dict:
@@ -113,13 +118,16 @@ class _DeepLab(nn.Module):
         out = {"logits_s8": to_f32(logits), "deep_features": feats["layer4"]}
         if "logits" in full_res:
             out["logits"] = to_f32(upsample_like(logits, x.shape[2:]))
+        if self.projector is not None:
+            out["proj_features"] = self.projector(feats["layer4"])
         return out
 
 
 class DeepLabv3(_DeepLab):
     def __init__(self, task: int = 2, backbone: str = "resnet50",
-                 out_stride: int = 16, c_aspp: int = 256):
-        super().__init__(backbone, out_stride, c_aspp)
+                 out_stride: int = 16, c_aspp: int = 256,
+                 projector: dict | None = None):
+        super().__init__(backbone, out_stride, c_aspp, projector)
         self.conv_out = nn.Conv2d(c_aspp, taxonomy.TASK_NUM_CLASSES[task], 1,
                                   bias=True)
 
@@ -129,8 +137,9 @@ class DeepLabv3(_DeepLab):
 
 class DeepLabv3Plus(_DeepLab):
     def __init__(self, task: int = 2, backbone: str = "resnet50",
-                 out_stride: int = 16, c_aspp: int = 256):
-        super().__init__(backbone, out_stride, c_aspp)
+                 out_stride: int = 16, c_aspp: int = 256,
+                 projector: dict | None = None):
+        super().__init__(backbone, out_stride, c_aspp, projector)
         self.decoder = Decoder(output_channels(backbone)[0], c_aspp,
                                taxonomy.TASK_NUM_CLASSES[task])
 

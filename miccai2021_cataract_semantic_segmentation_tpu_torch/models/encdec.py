@@ -7,17 +7,20 @@ under `dec_model.` (models/upernet.py). The encoder's channels come from
 the backbone table, so no probe forward is needed. Outputs: `logits_s8_acf`
 (the decoder's pre-upsample logits, stride 4 whatever the name says; "_acf"
 marks their align_corners=False upsample, which a loss may fuse),
-`deep_features` (layer 4), and `logits` (the full-resolution upsample) when
-`full_res` asks for it: 4x the stride-4 grid, the input's size where
-32 divides its sides (544x960), as in the JAX package. The PointRend
-decoder, the Inception encoder and the projector come with the remaining
-graphs.
+`deep_features` (layer 4, or with a `projector` section the projection
+head, models/projector.py, on layer 4 in its place), and `logits` (the
+full-resolution upsample) when `full_res` asks for it: 4x the stride-4
+grid, the input's size where 32 divides its sides (544x960), as in the
+JAX package. The PointRend decoder and the Inception encoder come with
+the remaining graphs.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import (
+    build_projector)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
     ENCODER_ALIASES, ResNetBackbone, output_channels)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.upernet import (
@@ -46,13 +49,12 @@ class EncDec(nn.Module):
             raise _not_ported("the PointRend decoder")
         if dec_name != "UPerNet":
             raise ValueError(f"Unknown decoder '{dec_name}'")
-        if projector is not None:
-            raise _not_ported("the projector")
         arch = ENCODER_ALIASES.get(enc_cfg["model"], enc_cfg["model"])
         self.enc_model = ResNetBackbone(arch, (False, False, False))
         self.dec_model = UPerNetDecoder(
             output_channels(arch), task=task, input_scales=(4, 8, 16, 32),
             **{k: v for k, v in dec_cfg.items() if k in _UPERNET_KEYS})
+        self.projector = build_projector(projector, output_channels(arch)[3])
 
     def forward(self, x: torch.Tensor,
                 full_res: tuple[str, ...] = ("logits",)) -> dict:
@@ -61,7 +63,9 @@ class EncDec(nn.Module):
         feats = self.enc_model(x)
         logits, small = self.dec_model([feats[f"layer{i}"] for i in (1, 2, 3, 4)],
                                        full_res="logits" in full_res)
-        out = {"logits_s8_acf": small, "deep_features": feats["layer4"]}
+        deep = feats["layer4"]
+        out = {"logits_s8_acf": small,
+               "deep_features": deep if self.projector is None else self.projector(deep)}
         if logits is not None:
             out["logits"] = logits
         return out

@@ -9,7 +9,9 @@ names (`interm_prediction_head`, `conv_high_map`,
     the pixel features into K class-context vectors;
   * object attention: 1x1-conv Q/K/V attention of pixels over the K context
     vectors, scaled by key_channels**-0.5, then concat + 1x1 fuse;
-  * 1x1 classifier + bilinear (align_corners=True) upsample to input size.
+  * 1x1 classifier + bilinear (align_corners=True) upsample to input size;
+  * with a `projector` section, the projection head (models/projector.py)
+    on layer 4 as `proj_features`.
 
 The gather and attention products run with autocast off in >= f32, as the
 JAX graph accumulates them, and leave in the features' dtype.
@@ -22,6 +24,8 @@ from torch import nn
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
     ConvBN, acc_dtype, batch_norm, to_f32, upsample_like)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import (
+    build_projector)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
     ResNetBackbone, output_channels)
 
@@ -108,7 +112,8 @@ def _ocr_dilate_stages(out_stride: int) -> tuple[bool, bool, bool]:
 
 class OCRNet(nn.Module):
     def __init__(self, task: int = 2, backbone: str = "resnet50",
-                 out_stride: int = 8, dropout: float = 0.0):
+                 out_stride: int = 8, dropout: float = 0.0,
+                 projector: dict | None = None):
         super().__init__()
         num_classes = taxonomy.TASK_NUM_CLASSES[task]
         if backbone in ("resnet18", "resnet34"):
@@ -127,6 +132,7 @@ class OCRNet(nn.Module):
         self.conv_high_map = ConvBN(c4, 512, 3, bias=True)
         self.spatial_ocr_head = SpatialOCR(512, 256, 512, dropout)
         self.conv_out = nn.Conv2d(512, num_classes, 1, bias=True)
+        self.projector = build_projector(projector, c4)
 
     def forward(self, x: torch.Tensor,
                 full_res: tuple[str, ...] = FULL_RES) -> dict:
@@ -151,4 +157,6 @@ class OCRNet(nn.Module):
         for key, lg in (("logits", logits), ("interm_logits", interm_logits)):
             if key in full_res:
                 out[key] = to_f32(upsample_like(lg, in_hw))
+        if self.projector is not None:
+            out["proj_features"] = self.projector(feats["layer4"])
         return out

@@ -1,8 +1,8 @@
 """Segmentation metrics: confusion matrix, PA/PAC, mIoU with category views,
-the normalised matrix and single-class IoU.
+the normalised matrix, single-class IoU and the sliding-window mIoU map.
 
-Port of the JAX package's ops/metrics.py (all but `sliding_miou`); every
-function but `confusion_matrix` works on a host (numpy) matrix. Rows index predictions, columns
+Port of the JAX package's ops/metrics.py; every function but
+`confusion_matrix` and `sliding_miou` works on a host (numpy) matrix. Rows index predictions, columns
 ground truth. Labels take values 0..C (C = the ignore id of tasks 2/3): the
 ignore column is dropped, and labels outside 0..C (such as the 255 that
 masks padded eval rows) count nowhere. The matrix is counted in int64, so
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 
@@ -102,3 +103,41 @@ def mean_iou_breakdown(cm, task: int) -> dict:
         if idx.size:
             out[f"miou_{name}"] = iou[idx].mean()
     return out
+
+
+def sliding_miou(logits: torch.Tensor, labels: torch.Tensor,
+                 kernel_size: int = 7, stride: int = 4,
+                 original_size: bool = True) -> torch.Tensor:
+    """Per-window mean IoU map (the reference's torch_utils.py:189-218): NCHW
+    logits and NHW labels -> (N, H', W') float32, each window's IoU of the
+    argmax and the labels averaged over the C classes (a class absent from
+    both counts 1). The window sums are a grouped (depthwise) convolution
+    with a ones kernel, exact in float32. `original_size` repeats each
+    window `stride` times and pads the map with zeros back to H x W, the
+    window's centre over its pixels."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel size must be odd")
+    n, c, h, w = logits.shape
+    cls = torch.arange(c, device=logits.device)[None, :, None, None]
+    pred_oh = (logits.argmax(dim=1)[:, None] == cls).to(torch.float32)
+    lbl_oh = (labels.to(torch.int64)[:, None] == cls).to(torch.float32)
+    ones = torch.ones(c, 1, kernel_size, kernel_size, device=logits.device)
+
+    def window_sum(x):
+        return F.conv2d(x, ones, stride=stride, groups=c)
+
+    inter = window_sum(pred_oh * lbl_oh)
+    union = window_sum(torch.maximum(pred_oh, lbl_oh))
+    empty = union == 0
+    iou = torch.where(empty, torch.ones_like(inter),
+                      inter / torch.where(empty, torch.ones_like(union), union))
+    m = iou.mean(dim=1)
+    if original_size:
+        m = m.repeat_interleave(stride, dim=1).repeat_interleave(stride, dim=2)
+        off = kernel_size // 2
+        pad_b, pad_r = h - m.shape[1] - off, w - m.shape[2] - off
+        if pad_b < 0 or pad_r < 0:
+            raise ValueError(f"a {h}x{w} map has no room for windows of "
+                             f"{kernel_size} at stride {stride}")
+        m = F.pad(m, (off, pad_r, off, pad_b))
+    return m

@@ -1,10 +1,22 @@
 """Small tensor utilities of the train step.
 
-Port of `downsample_labels` from the JAX package's ops/misc.py.
+Port of `clipped_argmax` and `downsample_labels` from the JAX package's
+ops/misc.py.
 """
 from __future__ import annotations
 
 import torch
+
+
+def clipped_argmax(softmax_pred: torch.Tensor, t: float,
+                   ignore_value: int) -> torch.Tensor:
+    """(N, K, H, W) softmax probabilities -> (N, H, W) int64 pseudo-labels:
+    the argmax where the largest probability is at least `t`, else
+    `ignore_value` (the reference's torch_utils.py:7-21)."""
+    if not 0 <= t < 1:
+        raise ValueError(f"threshold must be in [0,1) instead got {t}")
+    scores, indices = torch.max(softmax_pred, dim=1)
+    return torch.where(scores < t, torch.full_like(indices, ignore_value), indices)
 
 
 def downsample_labels(labels: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """flax -> torch weight bridge for OCRNet, HRNetv2, DeepLabv3, DeepLabv3+ and
-EncDec-UPerNet.
+EncDec-UPerNet, with their projection heads.
 
 The inverse of the JAX package's train/port_torch.py (`port_ocrnet`,
 `port_resnet_backbone`, `_resnet_flax_path`, `port_hrnet`,
@@ -9,7 +9,11 @@ flax `params` /
 port's state dict under the reference's torch names. Conv kernels go HWIO
 -> OIHW; BatchNorm scale/bias/mean/var go to weight/bias/running_mean/
 running_var, and each BatchNorm gets a `num_batches_tracked` of 0, so the
-result loads with `load_state_dict(strict=True)`.
+result loads with `load_state_dict(strict=True)`. `port_torch.py` has no
+table for the projection head; its flax modules `projector/mlp_{i}`,
+`projector/mlp_bn_{i}` and `projector/out` go to the port's own names
+`projector.mlp_{i}`, `projector.mlp_bn_{i}` and `projector.out`
+(models/projector.py).
 """
 from __future__ import annotations
 
@@ -43,8 +47,15 @@ def _block_prefix(path) -> str:
     return ".".join(out)
 
 
+def _projector_prefix(path: tuple[str, ...]) -> str:
+    """The projection head's flax module path -> torch module prefix."""
+    return f"projector.{path[1]}"
+
+
 def _ocrnet_prefix(path: tuple[str, ...]) -> str:
     """OCRNet's flax module path -> torch module prefix."""
+    if path[0] == "projector":
+        return _projector_prefix(path)
     if path[0] == "backbone":
         return "backbone." + _block_prefix(path[1:])
     if path[:2] == ("ocr", "attn"):
@@ -99,6 +110,8 @@ def _deeplab_prefix(path: tuple[str, ...], plus: bool) -> str:
     """DeepLabv3(+)'s flax module path -> torch module prefix: the ASPP's
     bare convolutions beside their `*_bn`, the v3+ decoder's likewise."""
     head = path[0]
+    if head == "projector":
+        return _projector_prefix(path)
     if head == "backbone":
         return "backbone." + _block_prefix(path[1:])
     if head == "conv_out":
@@ -117,6 +130,8 @@ def _encdec_upernet_prefix(path: tuple[str, ...]) -> str:
     """EncDec-UPerNet's flax module path -> torch module prefix (the
     inverse of `port_encdec_upernet` and its `_upernet_table`)."""
     head, rest = path[0], path[1:]
+    if head == "projector":
+        return _projector_prefix(path)
     if head == "encoder":
         return "enc_model." + _block_prefix(rest)
     if head != "decoder":

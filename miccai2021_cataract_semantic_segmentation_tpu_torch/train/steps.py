@@ -8,7 +8,8 @@ inputs — uint8 NHWC images and uint8 NHW labels, numpy or torch — and the
 eval steps return NCHW float32 logits. `precision="bf16"` (the JAX
 package's default) runs the forward under bf16 autocast; any other value
 runs it in the model's parameter dtype (float32, or float64 in the parity
-tests).
+tests). The semi-supervised train step (`semi`) labels the unlabelled
+half of its batch with `teacher_labels`, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import (
     IMAGENET_MEAN, IMAGENET_STD, AugmentDraws, augment_batch, draw_augment,
     pad_reflect_hw, to_unit)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import confusion_matrix
-from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import downsample_labels
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import (
+    clipped_argmax, downsample_labels)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
     TrainState, global_norm)
 
@@ -157,6 +159,23 @@ def debug_batch(x: torch.Tensor, lbl: torch.Tensor, logits: torch.Tensor,
             "debug_pred": logits.argmax(dim=1).to(torch.uint8)}
 
 
+def teacher_labels(model, x: torch.Tensor, precision: str, threshold: float,
+                   ignore_id: int) -> torch.Tensor:
+    """Pseudo-labels of the semi-supervised step: `clipped_argmax` of the
+    softmax of an eval-mode forward of `model` on the augmented images `x`
+    (NCHW) under `precision`, without gradient (the reference's
+    torch_utils.py:7-21). BatchNorm normalises with its running statistics
+    and leaves them as they were; the model is back in train mode after."""
+    with torch.no_grad():
+        model.eval()
+        try:
+            logits = _forward(model, x, precision)["logits"]
+        finally:
+            model.train()
+        probs = torch.softmax(logits.to(torch.float32), dim=1)
+        return clipped_argmax(probs, float(threshold), int(ignore_id))
+
+
 def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                     device: str | torch.device = "cuda",
                     precision: str = "bf16", train_metrics: str = "full",
@@ -181,9 +200,16 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     uint8 NHWC (`debug_img`, ImageNet normalisation undone), its labels
     (`debug_lbl`) and the full-resolution argmax (`debug_pred`). The
     forward computes the full-resolution outputs that the loss
-    (`loss_fn.full_res`) and the metrics read, and no others."""
-    if semi is not None:
-        raise _not_ported("semi-supervised training", "11")
+    (`loss_fn.full_res`) and the metrics read, and no others.
+
+    `semi` ({"threshold", "ignore_id"}; the JAX package's "n_shards" must
+    be 1 on one card) makes the step semi-supervised, as the JAX package's:
+    the batch is [labelled half | unlabelled half], the unlabelled half's
+    labels become `teacher_labels` of the augmented unlabelled images, the
+    loss (SemiSupervisedLoss) splits the batch the same way, and the
+    confusion matrix counts the labelled half only."""
+    if semi is not None and int(semi.get("n_shards", 1)) != 1:
+        raise _not_ported("semi-supervised training over several GPUs", "15")
     if has_point_head:
         raise _not_ported("the PointRend point head", "12")
     if mesh is not None:
@@ -203,6 +229,12 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             draws = step_draws(spec, images.shape[0], seed, state.step)
         x, lbl = augment_batch(images, labels, spec, draws)
         x = x.permute(0, 3, 1, 2).contiguous()
+        # the semi batch's labelled samples: its first half
+        half = x.shape[0] // 2 if semi is not None else x.shape[0]
+        if semi is not None:
+            pseudo = teacher_labels(model, x[half:], precision, semi["threshold"],
+                                    semi["ignore_id"])
+            lbl = torch.cat([lbl[:half], pseudo.to(lbl.dtype)])
         model.train()
         outputs = _forward(model, x, precision, full_res)
         total, terms = loss_fn(outputs, lbl, epoch=epoch, step=state.step)
@@ -214,9 +246,10 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             state.apply_gradients(grads)
             s8 = outputs.get("logits_s8", outputs.get("logits_s8_acf"))
             if train_metrics == "s8" and s8 is not None:
-                cm = confusion_matrix(s8, downsample_labels(lbl, s8.shape[2:]))
+                cm = confusion_matrix(s8[:half],
+                                      downsample_labels(lbl[:half], s8.shape[2:]))
             else:
-                cm = confusion_matrix(outputs["logits"], lbl)
+                cm = confusion_matrix(outputs["logits"][:half], lbl[:half])
         metrics = {"loss": total.detach(),
                    **{k: v.detach() for k, v in terms.items()},
                    "confusion_matrix": cm, "grad_norm": grad_norm}

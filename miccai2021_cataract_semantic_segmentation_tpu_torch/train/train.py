@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
-from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
+    build_transform_pipeline)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
     mean_iou_breakdown, pixel_accuracy)
@@ -60,7 +61,12 @@ def train_steps(model: torch.nn.Module, config: dict, images: np.ndarray,
     task = int(config["data"]["experiment"])
     loss_cfg = config.get("loss") or {"name": "CrossEntropyLoss"}
     loss_fn = build_loss(loss_cfg, task, dev)
-    spec = device_spec(config["data"].get("transforms", []))
+    pipeline = build_transform_pipeline(config["data"].get("transforms", []),
+                                        config["data"].get("transform_values", {}), task)
+    if pipeline.host_train:
+        raise ValueError("train_steps runs in-memory batches through the device "
+                         "augmentation only; Trainer.train runs the host transforms")
+    spec = pipeline.device
     state = create_train_state(model, config["train"],
                                make_schedule(config["train"], len(batches)))
     step = make_train_step(loss_fn, spec, task, device=dev,

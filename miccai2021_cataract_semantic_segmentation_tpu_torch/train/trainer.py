@@ -19,9 +19,21 @@ set after one warm-up batch and writes its metrics and frames/s to
 info.json. The device is "cuda" unless the caller passes device="cpu"
 (the tests).
 
-Not ported yet, and raising with their ROADMAP Queue A items: TTA (item
-13), the Ensemble (item 12), the MoCo-pretrained backbone and the
-semi-supervised mode (item 11).
+A train pipeline's host transforms (data/transforms.py) run on each
+sample as its batch is assembled, from a generator seeded with the seed
+plus the epoch. With the SemiSupervisedLoss the Trainer runs in semi mode,
+as the JAX Trainer does: each batch is half labelled frames and half
+frames of an unlabelled pool (the fifth element of `datasets`) drawn with
+replacement after the epoch's labelled batches, the train step labels the
+second half with the model's own confident predictions
+(train/steps.py:`teacher_labels`), an epoch covers the labelled set at
+half the batch size, the index histogram counts labelled frames only and
+the validation loss is the labelled loss alone. `graph.ss_pretrained:
+"moco"` initialises the backbone from a MoCo-v2 checkpoint.
+
+Not ported yet, and raising with their ROADMAP Queue A items: TTA and the
+unlabelled pool from the training split's videos (item 13), the Ensemble
+(item 12).
 """
 from __future__ import annotations
 
@@ -41,6 +53,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import (
     DECODED, SegDataset)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import (
     assemble_batch, epoch_iterator, eval_batches)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.semi import (
+    SemiSupervisedView, unlabeled_from_videos)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.samplers import (
     AdaptiveBatchSampler, RepeatFactorSampler, oversample_indices,
     weighted_random_epoch, weighted_random_weights)
@@ -68,6 +82,26 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"item {item})")
 
 
+def _is_resnet_tensor(key: str) -> bool:
+    """Whether a torchvision ResNet state-dict key names a convolution's
+    weight or bias or a BatchNorm's weight, bias or running statistics
+    (the JAX package's `port_torch._resnet_flax_path`; other tensors, such
+    as `num_batches_tracked`, are not copied)."""
+    parts = key.split(".")
+    if len(parts) < 2:
+        return False
+    leaf, module = parts[-1], parts[-2]
+    if module.isdigit() and len(parts) >= 3 and parts[-3] == "downsample":
+        module = f"downsample_{module}"
+    if module.startswith("conv"):
+        return leaf in ("weight", "bias")
+    if module == "downsample_0":
+        return leaf == "weight"
+    if module.startswith("bn") or module == "downsample_1":
+        return leaf in ("weight", "bias", "running_mean", "running_var")
+    return False
+
+
 def _breakdown(cm: np.ndarray, task: int) -> dict:
     bd = mean_iou_breakdown(cm, task)
     pa, pac = pixel_accuracy(cm)
@@ -83,7 +117,8 @@ class Trainer:
     def __init__(self, config: dict, datasets=None, *,
                  device: str | torch.device = "cuda"):
         """`datasets`: optional (train_dataset, valid_dataset, train_df,
-        valid_df) override for synthetic and test runs."""
+        valid_df[, unlabeled_dataset]) override for synthetic and test runs;
+        semi mode needs the fifth, the unlabelled pool."""
         self.device = resolve_device(device)
         self.config = config
         self.task = int(config["data"]["experiment"])
@@ -95,10 +130,8 @@ class Trainer:
         loss_cfg = config.get("loss") or {}
         if graph.get("model") == "Ensemble" or config.get("manager") == "Ensemble":
             raise _not_ported("the Ensemble", "12")
-        if loss_cfg.get("name") == "SemiSupervisedLoss":
-            raise _not_ported("the semi-supervised mode", "11")
-        if graph.get("ss_pretrained"):
-            raise _not_ported("the MoCo-v2 pretrained backbone", "11")
+        self.semi = (loss_cfg.get("name") == "SemiSupervisedLoss"
+                     and self.mode == "training")
 
         self.run_id = config.get("run_id") or "{}_e{}__{}".format(
             datetime.datetime.now().strftime("%Y%m%d_%H%M%S"), self.task,
@@ -109,13 +142,14 @@ class Trainer:
 
         # data -------------------------------------------------------------
         dcfg = config["data"]
-        # raises on a host transform (not ported); validation pads where
-        # "pad" is listed, as the JAX Trainer derives its eval spec
         self.pipeline = build_transform_pipeline(
             dcfg.get("transforms", ["pad"]), dcfg.get("transform_values", {}),
             self.task)
+        self.unlabeled_set = None
         if datasets is not None:
-            self.train_set, self.valid_set, self.train_df, self.valid_df = datasets
+            self.train_set, self.valid_set, self.train_df, self.valid_df = datasets[:4]
+            if len(datasets) == 5:
+                self.unlabeled_set = datasets[4]
         else:
             df = load_frame_table(dcfg.get("data_csv"), config.get("data_path"))
             self.train_df, self.valid_df = split_dataframes(
@@ -135,6 +169,21 @@ class Trainer:
         self.valid_batch_size = int(vbs) if vbs else \
             (8 if self.device.type == "cuda" else 1)
         self.batch_size = int(dcfg.get("batch_size", 8))
+        if self.semi:
+            if self.batch_size % 2:
+                raise ValueError(
+                    "semi-supervised mode splits each batch half/half "
+                    "(SemiSupervisedLoss.py:44-84); batch_size must be even, "
+                    f"got {self.batch_size}")
+            if self.unlabeled_set is None:
+                self.unlabeled_set = unlabeled_from_videos(config.get("data_path"),
+                                                           self.train_df)
+            self._iter_set = SemiSupervisedView(
+                self.train_set, self.unlabeled_set, taxonomy.TASK_NUM_CLASSES[self.task])
+        else:
+            self._iter_set = self.train_set
+        # labelled samples per batch: a semi batch is [labelled | unlabelled]
+        self.lab_batch_size = self.batch_size // 2 if self.semi else self.batch_size
 
         # the per-epoch loader schedule (BaseManager.py:202-213): a loader's
         # [start] runs it from `start` to the end, [start, end] up to `end`
@@ -149,7 +198,7 @@ class Trainer:
                 if 0 <= e < self.epochs:
                     self.train_schedule[e] = loader
         self._samplers: dict = {}
-        self.steps_per_epoch = max(1, len(self.train_set) // self.batch_size)
+        self.steps_per_epoch = max(1, len(self.train_set) // self.lab_batch_size)
         # an epoch's length is its loader's own (a repeat-factor epoch
         # about sum r(I) / bs batches, an oversampling one (n + extra) /
         # bs), and the LR schedule counts those lengths
@@ -160,14 +209,24 @@ class Trainer:
         self.precision = config.get("precision", "bf16")
         self.model = build_model(graph, self.task, device=self.device, seed=self.seed)
         self.loss_fn = build_loss(loss_cfg, self.task, self.device)
+        if graph.get("ss_pretrained"):
+            self._load_ss_pretrained(graph["ss_pretrained"])
         if config.get("torch_checkpoint"):
             self._load_torch_checkpoint(config["torch_checkpoint"])
-        spec = EvalSpec(pad=True, normalise=self.pipeline.device.normalise) \
+        # validation pads where "pad" is listed and "crop" is not, and
+        # normalises where "pad" and "torchvision_normalise" are: the JAX
+        # Trainer's eval spec is its train device spec where "pad" is listed
+        spec = EvalSpec(pad=self.pipeline.device.pad,
+                        normalise=self.pipeline.device.normalise) \
             if self.pipeline.valid_pad else None
         self.num_classes = taxonomy.TASK_NUM_CLASSES[self.task]
         self.eval_step = make_eval_step(spec, self.num_classes, self.device,
                                         self.precision)
-        self.eval_loss_step = make_eval_loss_step(self.loss_fn, spec, self.device,
+        # validation batches are fully labelled: in semi mode their loss is
+        # the labelled term's loss alone
+        valid_loss_fn = build_loss(dict(loss_cfg.get("labeled", {"name": "CrossEntropyLoss"})),
+                                   self.task, self.device) if self.semi else self.loss_fn
+        self.eval_loss_step = make_eval_loss_step(valid_loss_fn, spec, self.device,
                                                   self.precision)
         # the train state in every mode, so that load_checkpoint("last")
         # restores the optimiser and the step
@@ -175,10 +234,12 @@ class Trainer:
         self.state = create_train_state(self.model, config["train"], self.schedule)
         self.num_params = sum(p.numel() for p in self.model.parameters())
         self.debugging = bool(config.get("debugging", False))
+        semi_spec = {"threshold": float(loss_cfg.get("pseudo_threshold", 0.9)),
+                     "ignore_id": self.num_classes} if self.semi else None
         self.train_step = make_train_step(
             self.loss_fn, self.pipeline.device, self.task, device=self.device,
             precision=self.precision, train_metrics=train_metrics_source(config),
-            seed=self.seed, debug_pred=self.debugging)
+            seed=self.seed, debug_pred=self.debugging, semi=semi_spec)
 
         # bookkeeping ------------------------------------------------------
         self.train_writer = TBLogger(self.run_dir / "train")
@@ -198,6 +259,40 @@ class Trainer:
     def close(self) -> None:
         self.train_writer.close()
         self.valid_writer.close()
+
+    def _load_ss_pretrained(self, kind: str) -> None:
+        """Initialise the backbone (`enc_model` of an EncDec) from the
+        MoCo-v2 checkpoint `<ss_pretrained_path>/moco/
+        moco_v2_800ep_pretrain.pth.tar` (BaseManager.py:532-571): the
+        `module.encoder_q.` prefix stripped, the `fc` head dropped, every
+        convolution and BatchNorm tensor of a torchvision ResNet copied
+        into the model under the prefix, a name or shape the model lacks
+        refused."""
+        if kind != "moco":
+            raise ValueError(f"ss_pretrained '{kind}' not supported (moco only)")
+        path = pathlib.Path(self.config["ss_pretrained_path"]) / "moco" / \
+            "moco_v2_800ep_pretrain.pth.tar"
+        prefix = "enc_model" if self.config["graph"].get("model") == "EncDec" \
+            else "backbone"
+        own = self.model.state_dict()
+        updates = {}
+        for key, value in ckpt.load_torch_checkpoint(path).items():
+            if key.startswith("module.encoder_q."):
+                key = key[len("module.encoder_q."):]
+            if key.startswith("fc.") or not _is_resnet_tensor(key):
+                continue
+            target = f"{prefix}.{key}"
+            if target not in own:
+                raise KeyError(f"MoCo tensor {key} has no place {target} in the model")
+            if tuple(own[target].shape) != tuple(value.shape):
+                raise ValueError(f"MoCo tensor {key}: shape {tuple(value.shape)}, "
+                                 f"the model's {tuple(own[target].shape)}")
+            updates[target] = value
+        with torch.no_grad():
+            for target, value in updates.items():
+                own[target].copy_(value)
+        print(f"[{self.run_id}] initialised {prefix} from MoCo-v2 "
+              f"({len(updates)} tensors)")
 
     def _load_torch_checkpoint(self, path) -> None:
         """Load a reference `.pt` (a run's chkpt_best.pt, or a bare state
@@ -225,8 +320,9 @@ class Trainer:
         return extra
 
     def _expected_steps(self, mode: str) -> int:
-        """The batches of one epoch of loader `mode`."""
-        n, bs = len(self.train_set), self.batch_size
+        """The batches of one epoch of loader `mode` (in semi mode, over the
+        labelled set at half the batch size)."""
+        n, bs = len(self.train_set), self.lab_batch_size
         if mode == "repeat_factor":
             return max(1, int(self._get_rf_sampler().repeat_factors.sum()) // bs)
         if mode == "oversampling":
@@ -237,9 +333,12 @@ class Trainer:
         """(steps, batch_size) indices of `epoch` from its scheduled loader;
         `np_rng` is the run's generator (the default, oversampling and
         weighted-random loaders draw from it), the other loaders keep
-        their own."""
+        their own. In semi mode the loader gives the labelled half of each
+        batch, and the unlabelled half is drawn from `np_rng` after it,
+        uniformly with replacement, as indices of `_iter_set` past the
+        labelled set."""
         mode = self.train_schedule.get(epoch, "default")
-        n, bs = len(self.train_set), self.batch_size
+        n, bs = len(self.train_set), self.lab_batch_size
         if mode == "repeat_factor":
             batches = self._get_rf_sampler().epoch_batches(bs)
         elif mode == "oversampling":
@@ -270,11 +369,15 @@ class Trainer:
         if not len(batches):
             raise ValueError(f"epoch {epoch} ({mode}) has no full batch of {bs} "
                              f"from {n} training frames")
+        if self.semi:
+            unlab = n + np_rng.integers(0, len(self.unlabeled_set),
+                                        size=(len(batches), self.batch_size - bs))
+            batches = np.concatenate([batches, unlab], axis=1)
         return batches
 
     def _count_inds(self, epoch: int, batches: np.ndarray) -> None:
-        """Keep `epoch`'s batches and count how often each sample is drawn
-        (the reference's ind_dist, EncDec_Manager.py:70-77)."""
+        """Keep `epoch`'s batches and count how often each labelled sample
+        is drawn (the reference's ind_dist, EncDec_Manager.py:70-77)."""
         self.epoch_batches[epoch] = batches
         flat = batches.reshape(-1)
         np.add.at(self.ind_counts, flat[flat < len(self.ind_counts)], 1)
@@ -311,7 +414,8 @@ class Trainer:
                 if profile_epoch == epoch:
                     stack.enter_context(profile_steps(self.run_dir, self.device))
                 for bi, (images, labels, _) in enumerate(epoch_iterator(
-                        self.train_set, batches, self.device, prefetch=2)):
+                        self._iter_set, batches, self.device, prefetch=2,
+                        pipeline=self.pipeline, seed=self.seed + epoch)):
                     m = self.train_step(self.state, images, labels, epoch)
                     if self.debugging:
                         self._dump_debug_batch(m, epoch, bi)

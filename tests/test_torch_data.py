@@ -351,9 +351,18 @@ def test_transform_pipeline_equals_jax(transforms):
 
 
 def test_host_transforms_still_raise():
+    """The host transforms build as the JAX package's do; an unknown crop
+    mode still raises, as there, when a sample is cropped."""
     for name in ("rot", "crop"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            build_transform_pipeline(["pad", name], {}, 2)
+        got = build_transform_pipeline(["pad", name], {}, 2)
+        want = jtf.build_transform_pipeline(["pad", name], {}, 2)
+        assert [type(t).__name__ for t in got.host_train] == \
+            [type(t).__name__ for t in want.host_train]
+        assert vars(got.device) == vars(want.device)
+    crop = build_transform_pipeline(["crop"], {"crop_mode": "grid"}, 2).host_train[0]
+    with pytest.raises(ValueError, match="not recognised"):
+        crop(np.zeros((64, 64, 3), np.uint8), np.zeros((64, 64), np.uint8),
+             np.random.default_rng(0))
 
 
 @pytest.mark.parametrize("steps", [None, 2, 6, 11])

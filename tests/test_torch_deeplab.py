@@ -73,6 +73,17 @@ BRIDGES = {"DeepLabv3": bridge_deeplabv3, "DeepLabv3Plus": bridge_deeplabv3plus}
 N_IMG, H, W = 2, 64, 96
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def graph(name):
     return {"model": name, "backbone": "resnet50", "out_stride": 8}
 

@@ -49,6 +49,17 @@ CONFIG = load_config(pathlib.Path(__file__).resolve().parents[1] / "configs"
 N_FRAMES, BS, H, W = 5, 2, 36, 64        # a padded tail batch of 1 + 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def numpy_variables(model, seed=0):
     """flax's parameter tree for `model`, filled from numpy (float64 values
     of float32 draws): lecun-normal conv kernels, non-trivial BatchNorm."""

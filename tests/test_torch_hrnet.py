@@ -64,6 +64,17 @@ CONFIG = dict(load_config(ROOT / "configs" / "DeepLabv3_rf_lvsz.json"),
 N_IMG, H, W = 2, 64, 96
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_l2(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))
@@ -324,7 +335,9 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     align_corners=False, never the generic route's different function.
     The LossWrapper form of the same loss takes the same route;
     cross-entropy (ported since) reads the full-resolution logits; the
-    losses of later slices still raise."""
+    semi-supervised loss (ported since) builds, and refuses a loss without
+    an ignore mechanism; a LossWrapper's dense-contrastive term (ported
+    since) reads the projector's features."""
     x = torch.randn(1, 17, 16, 16)
     lbl = torch.randint(0, 18, (1, 16, 16))
     s8 = x[..., ::8, ::8].contiguous()
@@ -339,8 +352,9 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     assert per_image.full_res == ("logits",)
     assert float(per_image({"logits": x, "logits_s8": s8}, lbl)[0]) == float(
         lovasz_softmax(x, lbl, per_image=True, impl="bucket"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_loss({"name": "SemiSupervisedLoss"}, 2, "cpu")
+    assert build_loss({"name": "SemiSupervisedLoss"}, 2, "cpu").full_res == ("logits",)
+    with pytest.raises(NotImplementedError, match="ignore mechanism"):
+        build_loss({"name": "SemiSupervisedLoss", "labeled": {"name": "SoftIoU"}}, 2, "cpu")
     ce = build_loss({"name": "CrossEntropyLoss"}, 2, "cpu")    # ported since
     assert ce.full_res == ("logits",)
     assert float(ce({"logits": x, "logits_s8": s8}, lbl)[0]) == float(
@@ -350,8 +364,9 @@ def test_single_bucket_lovasz_on_stride8_logits_raises():
     assert wrapper.full_res == ()
     assert float(wrapper({"logits": x, "logits_s8_acf": s8}, lbl)[0]) == float(
         fused_bucket_lovasz_s8(s8, lbl, align_corners=False))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_loss({"losses": {"DenseContrastiveLoss": 1.0}}, 2, "cpu")
+    dc = build_loss({"losses": {"DenseContrastiveLoss": 1.0}}, 2, "cpu")
+    assert dc.full_res == ()
+    assert float(dc({"proj_features": torch.randn(1, 4, 2, 2)}, lbl)[0]) > 0
 
 
 def test_eval_loss_step_asks_for_the_outputs_the_loss_reads():

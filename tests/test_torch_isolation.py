@@ -3,7 +3,9 @@ package (its validation and train paths, OCRNet's and HRNetv2's,
 DeepLabv3's forward with both single-scale fused Lovász routes,
 EncDec-UPerNet's validation on the LossWrapper, the prototype fused
 upsample's checks and the CLI's inference and training from a PNG tree
-on disk, run with them blocked), nor pandas, cv2, PIL, matplotlib or
+on disk, and in a second process the affine and crop host transforms in
+a batch, OCRNet's projector on a LossWrapper with both dense-contrastive
+terms and a semi-supervised train step, run with them blocked), nor pandas, cv2, PIL, matplotlib or
 tensorboard, which the card's machine lacks (blocked in the same run; a
 source may import them only inside a `try` that catches ImportError), its
 entry points refuse to run on a missing card unless asked for the CPU,
@@ -56,6 +58,8 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import numpy as np
+import torch
+torch.set_num_threads(1)        # the suite runs in several processes at once
 import miccai2021_cataract_semantic_segmentation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -179,6 +183,66 @@ def test_port_imports_and_runs_with_jax_blocked():
     for name in ("chkpts/chkpt_last.pt", "ind_dist.npz", "info.json",
                  "profile/trace.json", "train/scalars.jsonl", "valid/scalars.jsonl"):
         assert name in res["train_files"], name
+    assert res["launches"] == dict.fromkeys(KERNELS, 0)
+    assert res["leaked"] == []
+
+
+# the blocking prelude of _SUBPROCESS, then the paths of the training
+# vocabulary: host transforms, the dense-contrastive LossWrapper, a semi step
+_TRAINING_VOCABULARY = _SUBPROCESS[:_SUBPROCESS.index("import miccai2021")] + """
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import ArrayDataset
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import assemble_batch
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
+    build_transform_pipeline, device_spec)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import load_config
+rng = np.random.default_rng(0)
+images = rng.integers(0, 256, (2, 60, 64, 3), dtype=np.uint8)
+labels = rng.integers(0, 18, (2, 60, 64), dtype=np.uint8)
+host = build_transform_pipeline(["affine", "crop", "flip"], {"crop_size": 0.6}, 2)
+host_batch = assemble_batch(ArrayDataset(images, labels), [0, 1], host,
+                            np.random.default_rng(0))
+cfg = load_config("configs/OCRNet_rf_lvsz.json")
+dc_loss = build_loss({"losses": {"TwoScaleLoss": 1, "DenseContrastiveLoss": 0.1,
+                                 "DenseContrastiveLossV2": 0.1},
+                      "TwoScaleLoss": cfg["loss"], "dc_off_at_epoch": 1}, 2, "cpu")
+proj = build_model(dict(cfg["graph"], projector={"d": 8, "mlp": [[1, 16, 1]], "use_bn": True}),
+                   2, device="cpu")
+with torch.no_grad():
+    dc_out = proj(torch.rand(2, 3, 32, 32))
+dc_terms = {k: float(v) for k, v in dc_loss(
+    dc_out, torch.as_tensor(labels[:, :32, :32]), epoch=0)[1].items()}
+hr_train = {"learning_rate": 1e-4, "epochs": 1}
+hr = build_model({"model": "HRNetv2", "width": 4}, 2, device="cpu")
+semi_loss = build_loss({"name": "SemiSupervisedLoss",
+                        "labeled": {"name": "LovaszSoftmax", "lovasz_impl": "bucket"}}, 2, "cpu")
+semi_step = make_train_step(semi_loss, device_spec(["pad"]), 2, device="cpu", precision="fp32",
+                            semi={"threshold": 0.1, "ignore_id": 17})
+semi_m = semi_step(create_train_state(hr, hr_train, make_schedule(hr_train, 1)),
+                   images[:, :30, :40], labels[:, :30, :40], 0)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT
+                and sys.modules[m] is not None)
+print(json.dumps({"host_shape": list(host_batch[0].shape), "dc_terms": dc_terms,
+                  "semi": [float(semi_m[k]) for k in ("labeled", "unlabeled")],
+                  "launches": {k: v.launches for k, v in KERNELS.items()},
+                  "leaked": leaked}))
+"""
+
+
+def test_training_vocabulary_runs_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _TRAINING_VOCABULARY % (BLOCKED, CARD_ABSENT)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["host_shape"] == [2, 32, 32, 3]
+    assert all(np.isfinite(v) for v in res["dc_terms"].values())
+    assert res["dc_terms"]["DenseContrastiveLoss"] > 0
+    assert all(np.isfinite(v) for v in res["semi"])
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 

@@ -33,6 +33,17 @@ GRAPH = {"model": "OCRNet", "backbone": "resnet50", "out_stride": 8}
 TOL = 1e-6        # float64 on both sides
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def flax_ocrnet_variables(seed: int = 0, hw=(64, 96)):
     """flax-initialised OCRNet-R50-os8 params with numpy-set BN
     scale/bias/mean/var, as nested dicts of numpy arrays."""
@@ -198,7 +209,7 @@ def test_torch_pad_matches():
         assert torch_pad(k, s, d) == jax_torch_pad(k, s, d)
 
 
-@pytest.mark.parametrize("graph", [{"model": "DeepLabv3", "projector": {"c_out": 8}},
+@pytest.mark.parametrize("graph", [{"model": "UNet"},
                                    {"model": "PointRend"},
                                    {"model": "FCN"},
                                    {"model": "OCRNet", "backbone": "hrnetv2_w18"},

@@ -45,6 +45,17 @@ GRID_CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_l2(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))

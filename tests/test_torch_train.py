@@ -71,6 +71,17 @@ CONFIG = load_config(pathlib.Path(__file__).resolve().parents[1] / "configs"
 PAD_ONLY = ["pad"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class x64:
     """jax_enable_x64 for the block (the JAX side of the float64 runs)."""
 
@@ -285,9 +296,17 @@ def test_draws_follow_the_seed_and_step():
 
 
 def test_host_transforms_raise():
+    """The device spec of a list with a host transform is the JAX
+    package's (the train pad off where "crop" is listed); `train_steps`,
+    which feeds in-memory batches to the device augmentation alone,
+    refuses such a list."""
     for name in ("rot", "shift", "shear", "affine", "crop"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            device_spec(["pad", name])
+        want = build_transform_pipeline(["pad", name], {}, 2).device
+        assert device_spec(["pad", name]) == DeviceAugmentSpec(**vars(want))
+        assert device_spec(["pad", name]).pad == (name != "crop")
+    with pytest.raises(ValueError, match="host transforms"):
+        train_steps(None, {**CONFIG, "data": {**CONFIG["data"], "transforms": ["crop"]}},
+                    None, None, [], device="cpu")
 
 
 @pytest.mark.parametrize("big,small", [((544, 960), (68, 120)), ((68, 96), (9, 12)),
@@ -538,9 +557,13 @@ def test_train_steps_runs_the_epoch_core():
     assert model.training
 
 
-@pytest.mark.parametrize("kwargs,item", [({"semi": {"threshold": 0.9}}, "11"),
-                                         ({"has_point_head": True}, "12"),
-                                         ({"mesh": object()}, "15")])
+@pytest.mark.parametrize("kwargs,item", [
+    # the first case keeps the id it had while the semi step itself raised
+    # (item 11); it now checks the semi step over several shards (item 15)
+    pytest.param({"semi": {"threshold": 0.9, "ignore_id": 17, "n_shards": 2}}, "15",
+                 id="kwargs0-11"),
+    pytest.param({"has_point_head": True}, "12", id="kwargs1-12"),
+    pytest.param({"mesh": object()}, "15", id="kwargs2-15")])
 def test_train_step_paths_of_later_slices_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         make_train_step(None, device_spec(PAD_ONLY), 2, device="cpu", **kwargs)

@@ -49,6 +49,17 @@ CONFIGS = sorted(p.name for p in (ROOT / "configs").glob("*.json")
 
 # ------------------------------------------------------------ cross-entropy
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ce_case(name):
     rng = np.random.default_rng(len(name))
     logits = rng.standard_normal((2, 17, 6, 7)) * 3
@@ -324,13 +335,17 @@ def test_trainer_refuses_what_is_not_ported(served):
         with pytest.raises(NotImplementedError, match=item):
             t.infer()
         t.close()
+    # the semi-supervised mode's pool of the training videos waits for the
+    # video decode; the semi mode with a given pool, MoCo and the host
+    # transforms are ported (tests/test_torch_semi.py, test_torch_host_transforms.py)
     for change, item in (({"graph": {"model": "Ensemble"}}, "item 12"),
-                         ({"loss": {"name": "SemiSupervisedLoss"}}, "item 11"),
-                         ({"graph": dict(OCR, ss_pretrained="moco")}, "item 11"),
-                         ({"data": dict(config["data"], transforms=["pad", "crop"])},
-                          "item 7")):
+                         ({"loss": {"name": "SemiSupervisedLoss"}, "mode": "training",
+                           "data": dict(config["data"], batch_size=2)}, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(dict(config, run_id="x", **change), device="cpu")
+    with pytest.raises(FileNotFoundError, match="moco_v2_800ep_pretrain"):
+        Trainer(dict(config, run_id="x", graph=dict(OCR, ss_pretrained="moco"),
+                     ss_pretrained_path=str(root / "no_moco")), device="cpu")
 
 
 # ------------------------------------------------------- full-size OCRNet

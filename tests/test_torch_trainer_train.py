@@ -59,6 +59,17 @@ VALID_VIDEOS = taxonomy.DATA_SPLITS[2][1]
 METRICS = ("miou", "miou_instruments", "miou_anatomies", "miou_rare", "pa", "pac")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def write_frames(root, n_train: int, n_valid: int, h: int, w: int, seed: int = 0):
     """A CaDIS tree of seeded frames: blocky labels of the common task-2
     classes, with classes 14, 15 and 16 each in one or two training frames

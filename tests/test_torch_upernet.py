@@ -76,6 +76,17 @@ GRAPH = {"model": "EncDec", "encoder": {"model": "ResNet34"},
 N_IMG, H, W = 2, 64, 96
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests and fixtures: the suite
+    runs in several processes at once, and torch's thread pools in each
+    would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_l2(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))
@@ -402,5 +413,9 @@ def test_later_parts_of_encdec_raise(graph, match):
 
 @pytest.mark.parametrize("name", ["DenseContrastiveLoss", "DenseContrastiveLossV2"])
 def test_loss_wrapper_dense_contrastive_terms_raise(name):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_loss({"losses": {"LovaszSoftmax": 1, name: 0.1}}, 2, "cpu")
+    """A dense-contrastive term builds (ported since) and raises only where
+    the model gives neither `proj_features` nor `deep_features`."""
+    loss = build_loss({"losses": {"LovaszSoftmax": 1, name: 0.1}}, 2, "cpu")
+    lbl = torch.randint(0, 18, (2, 16, 16))
+    with pytest.raises(ValueError, match="proj_features"):
+        loss({"logits": torch.randn(2, 17, 16, 16)}, lbl)
