@@ -195,7 +195,34 @@ Phases (any failure raises and the run exits non-zero):
      to an explicit teacher pass, which leaves BatchNorm's buffers and the
      train mode as they were; the semi step's and the flagship step's
      times in turns and the teacher's share; a run initialised from a
-     synthetic MoCo-v2 checkpoint.
+     synthetic MoCo-v2 checkpoint;
+ 24. the remaining graphs, on the same tree: (a) EncDec-PointRend-R50
+     (the flagship recipe with the UPerNet cell's LossWrapper, bucket
+     Lovász) trained 2 epochs through the CLI: PointRend gives no stride-8
+     logits, so one B3 a train step and a validation batch and one B4f a
+     step, none of the others; `point_loss` finite in every step's
+     scalars; two subdivision steps a validation forward; the subdivision
+     on the card (float32 with TF32 off) against the CPU at one 272x480
+     frame (the coarse map, the cells each step selects, under a bound
+     stated below, and the refined values where both select), then in
+     bf16 (its end-to-end share of differing cells printed, each step
+     replayed on the CPU from the card's input to it: the cells selected
+     and the values written); the
+     PointRend and UPerNet-R50 train and eval steps timed in turns, the
+     PointRend step profiled; (b) OCRNet-R18/R34 and on HRNet-W18 (the
+     flagship recipe: B1/B2 from stride-32 and stride-4 logits), FCN and
+     UNet (the LossWrapper's generic route: B3/B4f, UNet at 18 channels),
+     EncDec-UPerNet on Inception-v3, ResNeXt-50 and WideResNet-50 (the
+     UPerNet cell: B1/B2, the Inception's from a 132x236 grid), each
+     through `validate` of one batch of 8 and `train_steps` of two at full
+     width with its launches counted, its train step timed and its narrow
+     forward (2x128x160) on the card in float32 against the CPU in float64;
+     B3 and B4f at UNet's C 18 against their plain versions; the
+     SimpleDiscriminator's forward and backward; (c) the Ensemble of an
+     OCRNet-R50 and a UPerNet-R34, each saved as chkpt_best.pt after one
+     step, through the CLI in inference mode with mean and with max merge,
+     its matrix and mIoU equal to the functional `ensemble_apply` on the
+     same batches.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -339,6 +366,13 @@ B1_CASES = [
     ("deeplabv3plus_crop", 8, 17, (48, 48), (192, 192), 2048, "uniform", None, None, True),
     ("deeplabv3plus_valid", 8, 17, (135, 240), (540, 960), 2048, "uniform", None, None,
      True),
+    # phase 24's graphs on the fused routes: OCRNet-R18/34's stride-32
+    # logits and OCR-on-HRNet's stride-4 ones (the flagship's TwoScaleLoss,
+    # two scales at B 1024), and the Inception-UPerNet's odd stride-4 grid
+    # (132x236 at 544x960; the LossWrapper's single scale, align_corners=False)
+    ("ocrnet_r18", 8, 17, (17, 30), (544, 960), 1024, "uniform", None, None, True),
+    ("ocr_hrnet", 8, 17, (136, 240), (544, 960), 1024, "uniform", None, None, True),
+    ("inception_acf", 8, 17, (132, 236), (544, 960), 2048, "uniform", None, None, False),
 ]
 # the align_corners=True rows that run one scale (the single-scale route)
 B1_ONE_SCALE = ("deeplabv3", "deeplabv3plus_crop", "deeplabv3plus_valid")
@@ -3161,6 +3195,533 @@ def phase23_semi(dev, data) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the remaining graphs
+# ---------------------------------------------------------------------------
+
+POINTREND_GRAPH = {"model": "PointRend", "encoder": {"model": "ResNet50"}}
+# kernel launches a validation batch and a train step: the fused routes run
+# B1 (and B2 in the backward), the generic route B3 (and B4f)
+FUSED_LAUNCHES = {"eval": {"fu_hist": 1}, "train": {"fu_hist": 1, "fu_grad": 1}}
+GENERIC_LAUNCHES = {"eval": {"bucket_hist": 1},
+                    "train": {"bucket_hist": 1, "bucket_dlogits": 1}}
+# name: (graph, recipe, launches); recipe "flagship" is configs/OCRNet_rf_lvsz.json
+# (its TwoScaleLoss, bucket Lovász at B 1024), "upernet" configs/UPN_rf_lvsz.json
+# with UPN_LOSS (the LossWrapper's bucket Lovász: fused from `logits_s8_acf`,
+# else generic on the full-resolution logits)
+GRAPHS24 = {
+    "OCRNet-R18": ({"model": "OCRNet", "backbone": "resnet18"}, "flagship", FUSED_LAUNCHES),
+    "OCRNet-R34": ({"model": "OCRNet", "backbone": "resnet34"}, "flagship", FUSED_LAUNCHES),
+    "OCRNet-HRNetW18": ({"model": "OCRNet", "backbone": "hrnetv2_w18"}, "flagship",
+                        FUSED_LAUNCHES),
+    "FCN": ({"model": "FCN"}, "upernet", GENERIC_LAUNCHES),
+    "UNet": ({"model": "UNet"}, "upernet", GENERIC_LAUNCHES),
+    "UPerNet-InceptionV3": ({"model": "EncDec", "encoder": {"model": "InceptionV3"},
+                             "decoder": {"model": "UPerNet"}}, "upernet", FUSED_LAUNCHES),
+    "UPerNet-ResNeXt50": ({"model": "UPerNet", "encoder": {"model": "ResNeXt50"}},
+                          "upernet", FUSED_LAUNCHES),
+    "UPerNet-WideResNet50": ({"model": "UPerNet", "encoder": {"model": "WideResNet50"}},
+                             "upernet", FUSED_LAUNCHES),
+}
+# the narrow forward card vs CPU: every output of the eval forward at a
+# 2 x 128 x 160 input, the card in float32 with TF32 off against the CPU in
+# float64 from the same weights, relative L2 at most NARROW_TOL (float32
+# sums over some fifty layers)
+NARROW_HW = (128, 160)
+NARROW_TOL = 1e-4
+# PointRend's eval subdivision on the card against the CPU at one 272 x 480
+# frame. End to end with the card in float32 (TF32 off): at most
+# SELECT_DIFF_F32 of a step's 784 selected cells selected by one side
+# alone, the coarse map within COARSE_TOL of its largest element, the
+# refined values at the cells both select within REFINED_TOL of the
+# largest. Under bf16 autocast (the validation precision) the coarse
+# logits round to 8 bits and, at random weights, the uncertainties near
+# the 784th are near-ties, so the two ends select other cells (0.49 and
+# 0.70 of them on an H100 at 700 W, where a bound of 0.5 had been set
+# beforehand); that share is printed, and each bf16 step is replayed on the
+# CPU from the card's own input to it: the cells the CPU selects there
+# differ by at most SELECT_DIFF_REPLAY (float32 upsample sums in another
+# order can only reorder cells whose uncertainties tie within a
+# rounding), and the card's values written at the card's cells on the CPU
+# give the card's map, bit-equal at those cells and within COARSE_TOL of
+# the largest element elsewhere
+SELECT_DIFF_F32 = 0.01
+SELECT_DIFF_REPLAY = 0.01
+COARSE_TOL = 1e-4
+REFINED_TOL = 1e-3
+ENSEMBLE_MEMBERS = {"a_ocrnet_r50": ("flagship", {"model": "OCRNet", "backbone": "resnet50",
+                                                  "out_stride": 8}),
+                    "b_upernet_r34": ("upernet", None)}
+
+
+def recipe24(recipe: str, graph: dict | None = None) -> dict:
+    """A phase-24 recipe's run config with `graph` in place of its own."""
+    cfg = json.loads(pathlib.Path(CONFIG).read_text()) if recipe == "flagship" \
+        else upernet_config()
+    return cfg if graph is None else dict(cfg, graph=graph)
+
+
+def subdivision_trace(model, x: torch.Tensor, bf16: bool) -> dict:
+    """PointRend's eval forward step by step with the decoder's own
+    functions: the coarse map, and for each subdivision step its input
+    map, the cells it selects, their new values and its output map (the
+    last is the forward's `logits`), all on the CPU in float32."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import pointrend as pr
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+    dec = model.dec_model
+    with torch.inference_mode(), torch.autocast(x.device.type, dtype=torch.bfloat16,
+                                                enabled=bf16):
+        feats = model.enc_model(x)
+        conv_out = [feats[f"layer{i}"] for i in (1, 2, 3, 4)]
+        _, coarse = dec.partial_upernet(conv_out, full_res=False)
+        seg, steps = coarse, []
+        for _ in range(dec.scale.bit_length() - 1):
+            before = seg
+            seg = resize_bilinear(seg, (2 * seg.shape[2], 2 * seg.shape[3]),
+                                  align_corners=False)
+            idx, coords = pr.uncertain_points_on_grid(seg, dec.subdivision_num_points)
+            vals = dec._refine(conv_out, seg, coords)
+            seg = pr.scatter_points(seg, idx, vals)
+            steps.append({"before": before.float().cpu(), "idx": idx.cpu(),
+                          "vals": vals.to(seg.dtype).float().cpu(),
+                          "after": seg.float().cpu()})
+        full = model(x)["logits"]
+    if not torch.equal(full.float().cpu(), steps[-1]["after"]):
+        raise AssertionError("the traced subdivision is not the forward's")
+    return {"coarse": coarse.float().cpu(), "steps": steps}
+
+
+def selection_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of (B, P) selected cells `a` that `b` does not select."""
+    n, p = a.shape
+    return sum(p - len(np.intersect1d(a[i].numpy(), b[i].numpy()))
+               for i in range(n)) / (n * p)
+
+
+def replay_step(step: dict, num_points: int) -> tuple[float, bool, float]:
+    """One card subdivision step replayed on the CPU from the card's input
+    map: the share of selected cells that differ, whether the card's values
+    written at the card's cells give the card's map there bit for bit, and
+    the largest difference elsewhere (of the largest element)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import pointrend as pr
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+    before = step["before"]
+    up = resize_bilinear(before, (2 * before.shape[2], 2 * before.shape[3]),
+                         align_corners=False)
+    idx, _ = pr.uncertain_points_on_grid(up, num_points)
+    out = pr.scatter_points(up, step["idx"], step["vals"])
+    n, c = out.shape[:2]
+    at = step["idx"][:, None].expand(n, c, -1)
+    flat_out, flat_card = out.flatten(2), step["after"].flatten(2)
+    written = torch.equal(flat_out.gather(2, at), flat_card.gather(2, at))
+    rest = float((out - step["after"]).abs().max()) / float(step["after"].abs().max())
+    return selection_diff(step["idx"], idx), written, rest
+
+
+def pointrend_card_vs_cpu(dev) -> dict:
+    """The eval subdivision of a seed-0 PointRend-R50 on one 272 x 480
+    frame: the card in float32 (TF32 off) against the CPU in float32 end
+    to end (the coarse map, the cells each step selects by JAX's rule, the
+    refined values where both select); the card in bf16 against the CPU
+    end to end (printed), and each bf16 step replayed on the CPU from the
+    card's input to it (gated)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        EvalSpec, eval_preprocess)
+    images, _ = synthetic_set(1, 272, 480, seed=24)
+    x = eval_preprocess(torch.as_tensor(images), EvalSpec(normalise=True))
+    model = build_model(POINTREND_GRAPH, 2, device="cpu", seed=0)
+    ref = subdivision_trace(model, x, False)
+    model.to(dev)
+    num_points = model.dec_model.subdivision_num_points
+    tf32 = torch.backends.cudnn.allow_tf32
+    out, failed = {}, []
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        for bf16 in (False, True):
+            got = subdivision_trace(model, x.to(dev), bf16)
+            what = "bf16" if bf16 else "float32"
+            scale = float(ref["coarse"].abs().max())
+            coarse_err = float((got["coarse"] - ref["coarse"]).abs().max()) / scale
+            diffs, refined = [], []
+            for g, r in zip(got["steps"], ref["steps"]):
+                diffs.append(selection_diff(g["idx"], r["idx"]))
+                flat_g, flat_r = g["after"].flatten(2), r["after"].flatten(2)
+                err = 0.0
+                for b in range(g["idx"].shape[0]):
+                    both = torch.as_tensor(np.intersect1d(g["idx"][b].numpy(),
+                                                          r["idx"][b].numpy()))
+                    err = max(err, float((flat_g[b][:, both] - flat_r[b][:, both])
+                                         .abs().max()))
+                refined.append(err / float(r["after"].abs().max()))
+            print(f"PointRend subdivision card ({what}) vs CPU (float32), end to end: "
+                  f"coarse map max difference {coarse_err!r} of its largest element; "
+                  f"selected cells differing per step {diffs}; refined values at the "
+                  f"cells both select, max difference {refined} of the largest",
+                  flush=True)
+            out[what] = {"coarse": coarse_err, "select_diff": diffs, "refined": refined}
+            if not bf16:
+                if (max(diffs) > SELECT_DIFF_F32 or max(refined) > REFINED_TOL
+                        or coarse_err > COARSE_TOL):
+                    failed.append(what)
+                continue
+            replays = [replay_step(step, num_points) for step in got["steps"]]
+            print(f"PointRend bf16 steps replayed on the CPU from the card's input: "
+                  f"(selected cells differing, the card's values written bit-equal, "
+                  f"largest difference elsewhere) per step {replays}", flush=True)
+            out["bf16_replay"] = replays
+            if not all(d <= SELECT_DIFF_REPLAY and w and rest <= COARSE_TOL
+                       for d, w, rest in replays):
+                failed.append("bf16 replay")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if failed:
+        raise AssertionError(f"PointRend's subdivision card vs CPU fails in {failed}")
+    return out
+
+
+def narrow_card_vs_cpu(dev, name: str, graph: dict) -> float:
+    """`graph`'s seed-0 eval forward at NARROW_HW, the card in float32 (TF32
+    off) against the CPU in float64: the largest relative L2 over its
+    outputs, at most NARROW_TOL."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    model = build_model(graph, 2, device="cpu", seed=0)
+    x = torch.rand(2, 3, *NARROW_HW, generator=torch.Generator().manual_seed(24))
+    with torch.inference_mode():
+        want = model.double()(x.double())
+        want = want if isinstance(want, dict) else {"out": want}
+        model.float().to(dev)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got = model(x.to(dev))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        got = got if isinstance(got, dict) else {"out": got}
+    errs = {k: rel_l2(got[k].cpu(), want[k]) for k in want}
+    print(f"{name} narrow forward card (float32, TF32 off) vs CPU (float64) at "
+          f"2x{NARROW_HW[0]}x{NARROW_HW[1]}: relative L2 {errs}", flush=True)
+    if set(got) != set(want) or not max(errs.values()) <= NARROW_TOL:
+        raise AssertionError(f"{name}: card and CPU forwards disagree: {errs}")
+    return max(errs.values())
+
+
+def run_graph24(dev, name: str, graph: dict, recipe: str, expect: dict,
+                images, labels) -> dict:
+    """`validate` of one batch of 8 and `train_steps` of two, at full width,
+    with the kernels' launches read around each, the train step's time and
+    peak memory, and the narrow forward card vs CPU."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import pad_reflect_hw
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+        has_point_head, train_metrics_source, train_steps)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import validate
+
+    t0 = time.perf_counter()
+    cfg, bs = recipe24(recipe, graph), 8
+    model = build_model(graph, 2, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def expected(per, n):
+        return dict(dict.fromkeys(KERNELS, 0), **{k: v * n for k, v in per.items()})
+
+    reset_launches()
+    res = validate(model, cfg, images[:bs], labels[:bs], device=dev, batch_size=bs)
+    torch.cuda.synchronize()
+    val_launches = launch_counts()
+    n_counted = int((pad_reflect_hw(torch.as_tensor(labels[:bs])) < 17).sum())
+    cm_total = int(res["confusion_matrix"].sum())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tr = train_steps(model, cfg, images, labels,
+                     list(np.arange(2 * bs).reshape(2, bs)), device=dev)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step = make_train_step(build_loss(cfg["loss"], 2, dev),
+                           device_spec(cfg["data"]["transforms"]), 2, device=dev,
+                           precision=cfg.get("precision", "bf16"),
+                           train_metrics=train_metrics_source(cfg),
+                           has_point_head=has_point_head(graph))
+    step_ms = cuda_ms(lambda: step(tr["state"], images[:bs], labels[:bs], 0),
+                      reps=5, warmup=1)
+    print(f"{name} ({recipe} recipe, {n_params} parameters): validate "
+          f"{json.dumps({k: res[k] for k in ('valid_loss', 'miou')})}, cm total "
+          f"{cm_total} of {n_counted}, launches {val_launches}; train_steps losses "
+          f"{tr['step_losses']}, launches {launches}, peak memory {peak} bytes; "
+          f"train step {step_ms!r} ms (CUDA events, median of 5) = "
+          f"{bs / step_ms * 1e3!r} frames/s", flush=True)
+    if val_launches != expected(expect["eval"], 1):
+        raise AssertionError(f"{name} validate launched {val_launches}, expected "
+                             f"{expect['eval']}")
+    if launches != expected(expect["train"], 2):
+        raise AssertionError(f"{name} train_steps launched {launches}, expected "
+                             f"{expect['train']} a step")
+    if not (np.isfinite(res["valid_loss"]) and cm_total == n_counted
+            and np.isfinite(tr["step_losses"]).all()):
+        raise AssertionError(f"{name}: validate or train_steps gave {res['valid_loss']}, "
+                             f"cm {cm_total} of {n_counted}, {tr['step_losses']}")
+    del model, tr, step
+    torch.cuda.empty_cache()
+    narrow = narrow_card_vs_cpu(dev, name, graph)
+    return {"validate_launches": val_launches, "train_launches": launches,
+            "step_ms": step_ms, "peak_bytes": peak, "narrow_rel_l2": narrow,
+            "seconds": time.perf_counter() - t0}
+
+
+def generic_c18(dev) -> None:
+    """B3 and B4f at UNet's 18 logit channels (8 x 544 x 960, the ignore
+    channel kept): B3's histogram bit-equal to its plain version, B4f
+    within one bf16 ulp of its plain version, and the B4f instance that
+    runs (its class array and block)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        bucket_dlogits, bucket_dlogits_plain, bucket_histogram, bucket_histogram_plain)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import bucket_grad
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.bucket_lovasz import (
+        grad_table, losses_and_tables)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+        lovasz_rows)
+    n, h, w = B3_CELL
+    gen = torch.Generator(device=dev).manual_seed(18)
+    logits = (3.0 * torch.randn((n, 18, h, w), generator=gen, device=dev)).bfloat16()
+    labels = torch.as_tensor(blocky_labels(np.random.default_rng(18), n, h, w, 18, 8),
+                             device=dev)
+    e, fg, present = lovasz_rows(logits, labels)
+    e, fg = e.contiguous(), fg.contiguous()
+    hist = bucket_histogram(e, fg)
+    hist_equal = bool(torch.equal(hist, bucket_histogram_plain(e, fg)))
+    _, _, g_fg, g_bg = losses_and_tables(hist)
+    table = grad_table(g_fg, g_bg, loss_cotangent(present, n, False))
+    got = bucket_dlogits(e, fg, table, logits)
+    ref = bucket_dlogits_plain(e, fg, table, logits, False)
+    torch.cuda.synchronize()
+    ulps = float(((got.float() - ref.float()).abs() / bf16_ulp(ref)).max())
+    layout = bucket_grad.b4f_layout(18)
+    print(f"B3/B4f at C 18 ({n}x{h}x{w}, bf16): B3 histogram bit-equal to plain "
+          f"{hist_equal}; B4f within {ulps!r} bf16 ulps of plain; B4f instance: class "
+          f"array {bucket_grad.fused_instance_maxc(18)}, {layout.threads} threads a "
+          f"block, {layout.smem} bytes of tables in shared memory", flush=True)
+    if not (hist_equal and ulps <= 1.0):
+        raise AssertionError("B3/B4f at C 18 disagree with their plain versions")
+
+
+def discriminator24(dev) -> dict:
+    """SimpleDiscriminator (d 64, 544 x 960) forward and backward at batch 8
+    on the card, bf16 autocast, and its narrow forward card vs CPU."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    model = build_model({"model": "SimpleDiscriminator"}, 2, device=dev, seed=0).train()
+    x = torch.rand(8, 3, 544, 960, device=dev)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            y = model(x)
+        y.float().sum().backward()
+        return y.detach()
+
+    y = fwd_bwd()
+    torch.cuda.synchronize()
+    grads = torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
+    ms = cuda_ms(fwd_bwd, reps=5, warmup=1)
+    print(f"SimpleDiscriminator: output {tuple(y.shape)} in [{float(y.min())!r}, "
+          f"{float(y.max())!r}], gradient norm {float(grads.norm())!r}; forward and "
+          f"backward {ms!r} ms (CUDA events, median of 5)", flush=True)
+    if not (y.shape == (8, 1) and bool(((y > 0) & (y < 1)).all())
+            and bool(torch.isfinite(grads).all())):
+        raise AssertionError("SimpleDiscriminator's forward or backward failed")
+    narrow = narrow_card_vs_cpu(dev, "SimpleDiscriminator",
+                                {"model": "SimpleDiscriminator", "input_hw": NARROW_HW})
+    return {"ms": ms, "narrow_rel_l2": narrow}
+
+
+def ensemble24(dev, data, tmp) -> dict:
+    """Two members (OCRNet-R50 on the flagship recipe, UPerNet-R34 on the
+    UPerNet cell's), each trained one step and saved as its run's
+    chkpt_best.pt; the Ensemble through the CLI in inference mode with mean
+    and with max merge, each matrix and mIoU equal to the functional
+    `ensemble_apply` on the same batches (cuDNN deterministic around both)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import main as port_main
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import (
+        SegDataset, load_frame_table, split_dataframes)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import (
+        assemble_batch, eval_batches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import (
+        build_ensemble, build_model, ensemble_apply)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
+        confusion_matrix, mean_iou_breakdown)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train import checkpoint as ckpt
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        EvalSpec, eval_preprocess)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
+
+    logs = tmp / "logs"
+    images, labels = synthetic_set(8)
+    members = {}
+    for key, (recipe, graph) in ENSEMBLE_MEMBERS.items():
+        cfg = recipe24(recipe, graph)
+        model = build_model(cfg["graph"], 2, device=dev, seed=0)
+        train_steps(model, cfg, images, labels, [np.arange(8)], device=dev)
+        ckpt.save_checkpoint(logs / f"run_{key}" / "chkpts", "best", model, 0, 0.0, 0.0)
+        members[key] = dict(cfg["graph"], ckpt=f"run_{key}")
+        del model
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for merge in ("mean", "max"):
+            cfg = {"name": "ensemble", "mode": "inference", "manager": "Ensemble",
+                   "graph": {"model": "Ensemble", "members": members, "merge": merge},
+                   "data": {"experiment": 2, "split": 2, "transforms": ["pad"],
+                            "blacklist": False, "batch_size": 8},
+                   "train": {}, "loss": {}, "seed": 0, "run_id": f"ensemble_{merge}",
+                   "data_path": str(data), "log_path": str(logs)}
+            path = tmp / f"ensemble_{merge}.json"
+            path.write_text(json.dumps(cfg))
+            t = time.perf_counter()
+            res = port_main.main(["-c", str(path), "-dp", str(data)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            valid_set = SegDataset(split_dataframes(
+                load_frame_table(data_path=str(data)), 2, mode="inference",
+                blacklist=False)[1], 2, str(data))
+            bs = 8 if dev.type == "cuda" else 1            # the Trainer's valid batch
+            ens = build_ensemble(cfg["graph"], 2, logs, dev)
+            batches, n_pad = eval_batches(len(valid_set), bs)
+            cm = torch.zeros((17, 17), dtype=torch.int64)
+            for bi, idx in enumerate(batches):
+                imgs, lbls, _ = assemble_batch(valid_set, idx)
+                lbls = np.array(lbls)
+                if n_pad and bi == len(batches) - 1:
+                    lbls[bs - n_pad:] = 255
+                x, lbl = eval_preprocess(torch.as_tensor(imgs).to(dev), EvalSpec(pad=True),
+                                         torch.as_tensor(lbls).to(dev))
+                with torch.inference_mode(), torch.autocast(dev.type, dtype=torch.bfloat16):
+                    probs = ensemble_apply(list(zip(ens.members, ens.needs_norm)), x, merge)
+                cm += confusion_matrix(probs, lbl, 17).cpu()
+            miou = float(mean_iou_breakdown(cm.numpy(), 2)["miou"])
+            same = np.array_equal(np.asarray(res["confusion_matrix"]), cm.numpy())
+            print(f"Ensemble ({merge}) through the CLI: mIoU {res['miou']!r}, "
+                  f"{res['frames_per_sec']!r} frames/s over {len(valid_set)} frames, "
+                  f"{wall!r} s wall; the functional ensemble_apply: mIoU {miou!r}; "
+                  f"matrices equal {same}", flush=True)
+            if not (same and miou == res["miou"] and int(cm.sum()) > 0):
+                raise AssertionError(f"the Ensemble ({merge}) through the CLI and "
+                                     "ensemble_apply disagree")
+            out[merge] = {"miou": miou, "frames_per_sec": res["frames_per_sec"]}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def phase24_remaining_graphs(dev, data) -> dict:
+    """(a) EncDec-PointRend-R50 trained through the CLI for 2 epochs on the
+    flagship recipe with the UPerNet cell's LossWrapper (bucket Lovász: the
+    generic route, no stride-8 logits), its launches counted (one B3 a
+    train step and a validation batch, one B4f a step), `point_loss` in
+    every step's scalars, two subdivision steps a validation forward; the
+    subdivision card vs CPU; the PointRend and UPerNet-R50 train and eval
+    steps timed in turns, the PointRend step profiled; (b) each other graph
+    of GRAPHS24 through `validate` and `train_steps` at full width; B3/B4f
+    at UNet's C 18; the discriminator; (c) the Ensemble through the CLI.
+    Returns the launch counts."""
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import pointrend as pr
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
+        create_train_state)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        make_eval_step, make_train_step)
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_graphs_"))
+    out: dict = {"graphs": {}}
+    try:
+        # (a) PointRend through the CLI, its subdivisions counted
+        t = time.perf_counter()
+        cfg = recipe24("flagship", POINTREND_GRAPH)
+        cfg = dict(cfg, loss=dict(UPN_LOSS), train=dict(cfg["train"], epochs=2))
+        calls = []
+        select = pr.uncertain_points_on_grid
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return select(*args, **kwargs)
+
+        pr.uncertain_points_on_grid = counted
+        try:
+            rec, launches, wall, peak = _cli_run(data, tmp / "logs", tmp, "pointrend",
+                                                 cfg, dev)
+        finally:
+            pr.uncertain_points_on_grid = select
+        n_steps = len(rec.steps)
+        point_losses = rec.step_values("point_loss")
+        n_valid = VALID_FRAMES // (8 if dev.type == "cuda" else 1)   # the Trainer's batch
+        print(f"PointRend through the CLI: {n_steps} steps, point_loss per step "
+              f"{point_losses}, {len(calls)} subdivision steps, {wall!r} s wall, peak "
+              f"memory {peak} bytes", flush=True)
+        _expect_launches(launches, {"bucket_hist": n_steps + 2 * n_valid,
+                                    "bucket_dlogits": n_steps}, "PointRend through the CLI")
+        if not (n_steps > 0 and len(point_losses) == n_steps
+                and all(np.isfinite(v) and v > 0 for _, v in point_losses)
+                and len(calls) == 2 * 2 * n_valid):
+            raise AssertionError("PointRend's point loss or its subdivisions are missing")
+        out["pointrend"] = {"launches": launches, "steps": n_steps,
+                            "seconds": time.perf_counter() - t}
+        out["pointrend"]["card_vs_cpu"] = pointrend_card_vs_cpu(dev)
+
+        # PointRend's and UPerNet-R50's train and eval steps, in turns
+        images, labels = synthetic_set(16)
+        steps, evals = {}, {}
+        for name, graph in (("PointRend", POINTREND_GRAPH),
+                            ("UPerNet", {"model": "UPerNet",
+                                         "encoder": {"model": "ResNet50"}})):
+            model = build_model(graph, 2, device=dev, seed=0)
+            state = create_train_state(model, cfg["train"], lambda step: 1e-4)
+            loss_fn = build_loss(UPN_LOSS, 2, dev)
+            steps[name] = (state, make_train_step(
+                loss_fn, device_spec(cfg["data"]["transforms"]), 2, device=dev,
+                train_metrics="s8", has_point_head=name == "PointRend"))
+            evals[name] = (model, make_eval_step(None, 17, dev))
+        times = {"train": {}, "eval": {}}
+        for name in ("PointRend", "UPerNet", "UPerNet", "PointRend"):
+            state, step = steps[name]
+            times["train"].setdefault(name, []).append(cuda_ms(
+                lambda: step(state, images[:8], labels[:8], 0), reps=5, warmup=1))
+            model, ev = evals[name]
+            times["eval"].setdefault(name, []).append(cuda_ms(
+                lambda: ev(model, images[:8], labels[:8]), reps=5, warmup=1))
+        print(f"PointRend-R50 and UPerNet-R50 steps at batch 8, in turns (CUDA events, "
+              f"medians of 5; train on the LossWrapper, eval without a loss): "
+              f"{json.dumps(times)}", flush=True)
+        state, step = steps["PointRend"]
+        groups = profile_step(lambda: step(state, images[:8], labels[:8], 0),
+                              "PointRend train")
+        out["pointrend"].update(times=times, profile=groups)
+        del steps, evals, state, step
+        torch.cuda.empty_cache()
+
+        # (b) the other graphs
+        for name, (graph, recipe, expect) in GRAPHS24.items():
+            out["graphs"][name] = run_graph24(dev, name, graph, recipe, expect,
+                                              images, labels)
+            torch.cuda.empty_cache()
+        generic_c18(dev)
+        out["discriminator"] = discriminator24(dev)
+
+        # (c) the Ensemble
+        out["ensemble"] = ensemble24(dev, data, tmp)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3242,6 +3803,7 @@ def main() -> int:
         data = write_semi_tree(pathlib.Path(tree) / "data")
         zoo = phase(22, phase22_contrastive_and_zoo, dev, data)
         semi = phase(23, phase23_semi, dev, data)
+        graphs = phase(24, phase24_remaining_graphs, dev, data)
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -3249,6 +3811,14 @@ def main() -> int:
         rec["semi_launches"] = semi["launches"][key]
         rec["semi_half_ms"] = semi["half"][f"{k}_ms"]
         rec["semi_half_plain_ms"] = semi["half"][f"{k}_plain_ms"]
+    # phase 24: each graph's launches over validate (one batch) and
+    # train_steps (two steps); PointRend's over its CLI run
+    for rec, key in ((b1, "fu_hist"), (b2, "fu_grad"), (b3, "bucket_hist"),
+                     (b4f, "bucket_dlogits")):
+        counts = {name: g["validate_launches"][key] + g["train_launches"][key]
+                  for name, g in graphs["graphs"].items()}
+        counts["PointRend (CLI)"] = graphs["pointrend"]["launches"][key]
+        rec["phase24_launches"] = {k: v for k, v in counts.items() if v}
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
@@ -3268,7 +3838,12 @@ def main() -> int:
           f"{zoo['contrastive']['fu_grad']} and {zoo['zoo']['fu_hist']}/"
           f"{zoo['zoo']['fu_grad']}), over the semi-supervised Trainer.train "
           f"(B3/B4f: {semi['launches']['bucket_hist']}/"
-          f"{semi['launches']['bucket_dlogits']}, 'semi_launches') "
+          f"{semi['launches']['bucket_dlogits']}, 'semi_launches'), over phase "
+          f"24's graphs (B3/B4f: PointRend through the CLI "
+          f"{graphs['pointrend']['launches']['bucket_hist']}/"
+          f"{graphs['pointrend']['launches']['bucket_dlogits']}, FCN and UNet; B1/B2: "
+          "OCRNet-R18/R34/HRNet-W18 and UPerNet on Inception-v3, ResNeXt-50 and "
+          "WideResNet-50; 'phase24_launches') "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

@@ -1,9 +1,11 @@
-"""OCRNet — the flagship graph, on a dilated ResNet.
+"""OCRNet — the flagship graph, on a dilated ResNet or on HRNet.
 
 Port of the JAX package's models/ocr.py with the reference's torch module
 names (`interm_prediction_head`, `conv_high_map`,
 `spatial_ocr_head.object_context_block.f_pixel`, `conv_out`, ...):
-  * intermediate soft-object-region head off layer3;
+  * intermediate soft-object-region head off layer3 (ResNet-18/34 are
+    never dilated, so layer3 lies at twice layer4's size there and the
+    head's 3x3 conv has stride 2, as the reference intends);
   * 3x3 conv to 512ch pixel features off layer4;
   * spatial gather: per-class spatial softmax of the interm logits pools
     the pixel features into K class-context vectors;
@@ -12,6 +14,11 @@ names (`interm_prediction_head`, `conv_high_map`,
   * 1x1 classifier + bilinear (align_corners=True) upsample to input size;
   * with a `projector` section, the projection head (models/projector.py)
     on layer 4 as `proj_features`.
+On HRNet (`backbone` "hrnetv2_18" or "hrnetv2_w18"; width 32 without a
+suffix) the trunk (models/hrnet.py, under `backbone.` with HRNetv2's own
+names) gives the concatenation of its four branches at stride 4, which
+feeds both the soft-region head and the pixel features; the reference
+leaves this combination unimplemented and has no checkpoint for it.
 
 The gather and attention products run with autocast off in >= f32, as the
 JAX graph accumulates them, and leave in the features' dtype.
@@ -22,6 +29,8 @@ import torch
 from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import (
+    HRNetTrunk, hrnet_concat)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
     ConvBN, acc_dtype, batch_norm, to_f32, upsample_like)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import (
@@ -104,10 +113,19 @@ class SpatialOCR(nn.Module):
 FULL_RES = ("logits", "interm_logits")
 
 
-def _ocr_dilate_stages(out_stride: int) -> tuple[bool, bool, bool]:
-    """The out-stride table of the Bottleneck backbones."""
+def _ocr_dilate_stages(backbone: str, out_stride: int) -> tuple[bool, bool, bool]:
+    """ResNet-18/34 never dilate; the Bottleneck backbones follow the
+    out-stride table."""
+    if backbone in ("resnet18", "resnet34"):
+        return (False, False, False)
     return {8: (False, True, True), 16: (False, False, True),
             32: (False, False, False)}[out_stride]
+
+
+def hrnet_width(backbone: str) -> int:
+    """The HRNet width of "hrnetv2_18" / "hrnetv2_w18" (32 without one)."""
+    suffix = backbone.rsplit("_", 1)[1].lstrip("w") if "_" in backbone else ""
+    return int(suffix) if suffix else 32
 
 
 class OCRNet(nn.Module):
@@ -116,17 +134,20 @@ class OCRNet(nn.Module):
                  projector: dict | None = None):
         super().__init__()
         num_classes = taxonomy.TASK_NUM_CLASSES[task]
-        if backbone in ("resnet18", "resnet34"):
-            raise NotImplementedError(
-                "OCRNet on ResNet-18/34 (never dilated, its soft object regions "
-                "at half layer 4's size) is not ported yet (ROADMAP Queue A "
-                "item 12)")
-        self.backbone = ResNetBackbone(backbone, _ocr_dilate_stages(out_stride))
-        c3, c4 = output_channels(backbone)[2:]
+        self.on_hrnet = backbone.startswith("hrnetv2")
+        if self.on_hrnet:
+            self.backbone = HRNetTrunk(hrnet_width(backbone))
+            c3 = c4 = sum(self.backbone.widths)
+        else:
+            self.backbone = ResNetBackbone(backbone,
+                                           _ocr_dilate_stages(backbone, out_stride))
+            c3, c4 = output_channels(backbone)[2:]
+        interm_stride = 2 if backbone in ("resnet18", "resnet34") else 1
         # Sequential(conv, bn, relu, dropout, cls): the reference keeps
         # torch's default bias on both convs
         self.interm_prediction_head = nn.Sequential(
-            nn.Conv2d(c3, 512, 3, padding=1, bias=True), batch_norm(512),
+            nn.Conv2d(c3, 512, 3, stride=interm_stride, padding=1, bias=True),
+            batch_norm(512),
             nn.ReLU(inplace=True), nn.Dropout(dropout),
             nn.Conv2d(512, num_classes, 1, bias=True))
         self.conv_high_map = ConvBN(c4, 512, 3, bias=True)
@@ -144,19 +165,23 @@ class OCRNet(nn.Module):
         read the stride-8 logits leaves out both, as XLA drops them from the
         JAX program. Everything else is the same."""
         in_hw = x.shape[2:]
-        feats = self.backbone(x)
-        interm_logits = self.interm_prediction_head(feats["layer3"])
-        pix = self.conv_high_map(feats["layer4"])
+        if self.on_hrnet:
+            low = high = hrnet_concat(self.backbone(x))
+        else:
+            feats = self.backbone(x)
+            low, high = feats["layer3"], feats["layer4"]
+        interm_logits = self.interm_prediction_head(low)
+        pix = self.conv_high_map(high)
         context = spatial_gather(pix, interm_logits)
         logits = self.conv_out(self.spatial_ocr_head(pix, context))
         out = {
             "logits_s8": to_f32(logits),
             "interm_logits_s8": to_f32(interm_logits),
-            "deep_features": feats["layer4"],
+            "deep_features": high,
         }
         for key, lg in (("logits", logits), ("interm_logits", interm_logits)):
             if key in full_res:
                 out[key] = to_f32(upsample_like(lg, in_hw))
         if self.projector is not None:
-            out["proj_features"] = self.projector(feats["layer4"])
+            out["proj_features"] = self.projector(high)
         return out

@@ -1,5 +1,6 @@
 """torchvision-compatible dilated ResNet backbones (BasicBlock ResNet-18/34,
-Bottleneck ResNet-50/101) and the residual blocks HRNet builds from.
+Bottleneck ResNet-50/101, ResNeXt-50 32x4d / 101 32x8d and WideResNet-50/101
+x2) and the residual blocks HRNet builds from.
 
 Port of the JAX package's models/resnet.py with torchvision's module names
 (`conv1`, `bn1`, `layer1.0.conv2`, `layer2.0.downsample.0`, ...), so the
@@ -7,8 +8,10 @@ reference checkpoints load directly. `dilate_stages` is torchvision's
 `replace_stride_with_dilation` for (layer2, layer3, layer4); the first
 block of a dilated layer keeps the previous dilation for its 3x3 conv.
 `BasicBlock` also serves HRNet's branches. Both blocks take the torch
-BatchNorm momentum of their graph (`bn_momentum`). ResNeXt and
-WideResNet come with the remaining backbones.
+BatchNorm momentum of their graph (`bn_momentum`). ResNeXt and WideResNet
+are Bottleneck ResNets whose 3x3 convolution is grouped (`groups`) and
+`int(planes * base_width / 64) * groups` wide, as torchvision builds them;
+their state-dict names are ResNet's.
 """
 from __future__ import annotations
 
@@ -51,15 +54,17 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False,
-                 bn_momentum: float = BN_MOMENTUM):
+                 bn_momentum: float = BN_MOMENTUM, groups: int = 1,
+                 base_width: int = 64):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
-        self.bn1 = batch_norm(planes, bn_momentum)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation, bias=False)
-        self.bn2 = batch_norm(planes, bn_momentum)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2d(in_planes, width, 1, bias=False)
+        self.bn1 = batch_norm(width, bn_momentum)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=dilation,
+                               dilation=dilation, groups=groups, bias=False)
+        self.bn2 = batch_norm(width, bn_momentum)
+        self.conv3 = nn.Conv2d(width, out, 1, bias=False)
         self.bn3 = batch_norm(out, bn_momentum)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
@@ -74,16 +79,19 @@ class Bottleneck(nn.Module):
         return self.relu(y + identity)
 
 
-# name: (block, blocks per stage), groups 1, base width 64
+# name: (block, blocks per stage, groups, base width)
 _ARCHS = {
-    "resnet18": (BasicBlock, (2, 2, 2, 2)),
-    "resnet34": (BasicBlock, (3, 4, 6, 3)),
-    "resnet50": (Bottleneck, (3, 4, 6, 3)),
-    "resnet101": (Bottleneck, (3, 4, 23, 3)),
+    "resnet18": (BasicBlock, (2, 2, 2, 2), 1, 64),
+    "resnet34": (BasicBlock, (3, 4, 6, 3), 1, 64),
+    "resnet50": (Bottleneck, (3, 4, 6, 3), 1, 64),
+    "resnet101": (Bottleneck, (3, 4, 23, 3), 1, 64),
+    "resnext50_32x4d": (Bottleneck, (3, 4, 6, 3), 32, 4),
+    "resnext101_32x8d": (Bottleneck, (3, 4, 23, 3), 32, 8),
+    "wide_resnet50_2": (Bottleneck, (3, 4, 6, 3), 1, 128),
+    "wide_resnet101_2": (Bottleneck, (3, 4, 23, 3), 1, 128),
 }
 
-# the reference EncDec's encoder names (ResNeXt and WideResNet are not
-# ported: ResNetBackbone raises on their archs)
+# the reference EncDec's encoder names
 ENCODER_ALIASES = {
     "ResNet18": "resnet18", "ResNet34": "resnet34",
     "ResNet50": "resnet50", "ResNet101": "resnet101",
@@ -94,9 +102,7 @@ ENCODER_ALIASES = {
 
 def _check_arch(arch: str) -> None:
     if arch not in _ARCHS:
-        raise NotImplementedError(
-            f"backbone '{arch}' is not ported yet (ROADMAP Queue A "
-            "item 12: the remaining graphs and backbones)")
+        raise ValueError(f"Unknown backbone '{arch}'")
 
 
 def output_channels(arch: str) -> tuple[int, int, int, int]:
@@ -113,7 +119,9 @@ class ResNetBackbone(nn.Module):
                  dilate_stages: Sequence[bool] = (False, False, False)):
         super().__init__()
         _check_arch(arch)
-        block, layer_sizes = _ARCHS[arch]
+        block, layer_sizes, groups, base_width = _ARCHS[arch]
+        wide = {"groups": groups, "base_width": base_width} \
+            if block is Bottleneck else {}
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm(64)
         self.relu = nn.ReLU(inplace=True)
@@ -132,7 +140,8 @@ class ResNetBackbone(nn.Module):
                 d = dilation // (2 if (bi == 0 and dilated) else 1)
                 need_ds = bi == 0 and (s != 1 or
                                        in_planes != planes * block.expansion)
-                layer.append(block(in_planes, planes, s, max(d, 1), need_ds))
+                layer.append(block(in_planes, planes, s, max(d, 1), need_ds,
+                                   **wide))
                 in_planes = planes * block.expansion
             self.add_module(f"layer{li + 1}", nn.Sequential(*layer))
         # torchvision's initialisation (kaiming-normal fan-out convs)

@@ -1,15 +1,27 @@
-"""flax -> torch weight bridge for OCRNet, HRNetv2, DeepLabv3, DeepLabv3+ and
-EncDec-UPerNet, with their projection heads.
+"""flax -> torch weight bridge for every graph of the port, with the
+projection heads.
 
 The inverse of the JAX package's train/port_torch.py (`port_ocrnet`,
 `port_resnet_backbone`, `_resnet_flax_path`, `port_hrnet`,
-`port_deeplabv3`, `port_deeplabv3plus`, `port_encdec_upernet`): it takes a
-flax `params` /
-`batch_stats` tree given as nested dicts of numpy arrays and returns the
-port's state dict under the reference's torch names. Conv kernels go HWIO
--> OIHW; BatchNorm scale/bias/mean/var go to weight/bias/running_mean/
-running_var, and each BatchNorm gets a `num_batches_tracked` of 0, so the
-result loads with `load_state_dict(strict=True)`. `port_torch.py` has no
+`port_deeplabv3`, `port_deeplabv3plus`, `port_encdec_upernet`,
+`port_encdec_pointrend`): it takes a flax `params` / `batch_stats` tree
+given as nested dicts of numpy arrays and returns the port's state dict
+under the reference's torch names. Conv kernels go HWIO -> OIHW (a grouped
+kernel's I is its group's width in both frameworks, so ResNeXt's go the
+same way); a flax `ConvTranspose(transpose_kernel=True)` kernel, (kh, kw,
+out, in), is the forward convolution's HWIO kernel, and the same
+transpose gives torch's `ConvTranspose2d` weight (in, out, kh, kw); Dense
+kernels (in, out) go to `Linear` weights (out, in) or, in PointRend's
+point head, `Conv1d` weights (out, in, 1). BatchNorm scale/bias/mean/var
+go to weight/bias/running_mean/running_var, and each BatchNorm gets a
+`num_batches_tracked` of 0, so the result loads with
+`load_state_dict(strict=True)`. `bridge_ocrnet` covers every OCRNet
+backbone (on HRNet the trunk's flax modules sit at the top level and go
+under `backbone.` with HRNetv2's names); `bridge_encdec_upernet` every
+EncDec-UPerNet encoder (ResNet, ResNeXt, WideResNet, Inception-v3:
+torchvision's `Conv2d_1a_3x3` ... `Mixed_7c`). The JAX porter has no
+table for FCN, UNet or SimpleDiscriminator, whose torch names are their
+flax names (`bridge_flax_names`). `port_torch.py` has no
 table for the projection head; its flax modules `projector/mlp_{i}`,
 `projector/mlp_bn_{i}` and `projector/out` go to the port's own names
 `projector.mlp_{i}`, `projector.mlp_bn_{i}` and `projector.out`
@@ -58,6 +70,8 @@ def _ocrnet_prefix(path: tuple[str, ...]) -> str:
         return _projector_prefix(path)
     if path[0] == "backbone":
         return "backbone." + _block_prefix(path[1:])
+    if re.fullmatch(r"stem\d|layer1_\d+|trans\d_\d|stage\d", path[0]):
+        return "backbone." + _hrnet_prefix(path)      # OCR on HRNet
     if path[:2] == ("ocr", "attn"):
         i = int(path[3][-1])                   # conv{i} / bn{i}
         idx = 3 * i + (1 if path[3].startswith("bn") else 0)
@@ -126,9 +140,27 @@ def _deeplab_prefix(path: tuple[str, ...], plus: bool) -> str:
     raise KeyError(f"no torch name for flax module {path}")
 
 
-def _encdec_upernet_prefix(path: tuple[str, ...]) -> str:
-    """EncDec-UPerNet's flax module path -> torch module prefix (the
-    inverse of `port_encdec_upernet` and its `_upernet_table`)."""
+def _upernet_prefix(rest: tuple[str, ...], base: str, path) -> str:
+    """A UPerNet decoder's flax module path below its own module -> torch
+    module prefix under `base` (the inverse of `_upernet_table`)."""
+    if rest == ("cls",):
+        return f"{base}.conv_last.1"
+    hit = re.fullmatch(r"(ppm_conv|fpn_in|fpn_out)_(\d+)", rest[0])
+    if hit:
+        inner = ".0" if hit.group(1) == "fpn_out" else ""   # Sequential(ConvBN)
+        return f"{base}.{hit.group(1)}.{hit.group(2)}{inner}.{_CONV_BN[rest[1]]}"
+    if rest[0] in ("ppm_last_conv", "conv_last"):
+        inner = ".0" if rest[0] == "conv_last" else ""      # conv_last.0 is a ConvBN
+        return f"{base}.{rest[0]}{inner}.{_CONV_BN[rest[1]]}"
+    raise KeyError(f"no torch name for flax module {path}")
+
+
+def _encdec_prefix(path: tuple[str, ...]) -> str:
+    """EncDec's flax module path -> torch module prefix (the inverse of
+    `port_encdec_upernet` and `port_encdec_pointrend`): the encoder under
+    `enc_model.`, a UPerNet decoder under `dec_model.`, PointRend's coarse
+    UPerNet under `dec_model.partial_upernet.` and its point head under
+    `dec_model.point_head.`."""
     head, rest = path[0], path[1:]
     if head == "projector":
         return _projector_prefix(path)
@@ -136,27 +168,24 @@ def _encdec_upernet_prefix(path: tuple[str, ...]) -> str:
         return "enc_model." + _block_prefix(rest)
     if head != "decoder":
         raise KeyError(f"no torch name for flax module {path}")
-    if rest == ("cls",):
-        return "dec_model.conv_last.1"
-    hit = re.fullmatch(r"(ppm_conv|fpn_in|fpn_out)_(\d+)", rest[0])
-    if hit:
-        inner = ".0" if hit.group(1) == "fpn_out" else ""   # Sequential(ConvBN)
-        return (f"dec_model.{hit.group(1)}.{hit.group(2)}{inner}."
-                f"{_CONV_BN[rest[1]]}")
-    if rest[0] in ("ppm_last_conv", "conv_last"):
-        inner = ".0" if rest[0] == "conv_last" else ""      # conv_last.0 is a ConvBN
-        return f"dec_model.{rest[0]}{inner}.{_CONV_BN[rest[1]]}"
-    raise KeyError(f"no torch name for flax module {path}")
+    if rest[0] == "point_head":
+        return f"dec_model.point_head.{rest[1]}"
+    if rest[0] == "coarse":
+        return _upernet_prefix(rest[1:], "dec_model.partial_upernet", path)
+    return _upernet_prefix(rest, "dec_model", path)
 
 
-def _bridge(params, batch_stats, module_prefix) -> dict[str, torch.Tensor]:
+def _bridge(params, batch_stats, module_prefix,
+            dense_as_conv1d: bool = False) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     bn_modules = []
     for tree in (params, batch_stats):
         for path, v in _walk(tree):
             prefix = module_prefix(path[:-1])
             leaf = path[-1]
-            if leaf == "kernel":
+            if leaf == "kernel" and v.ndim == 2:        # Dense (in, out)
+                v = v.T[:, :, None] if dense_as_conv1d else v.T
+            elif leaf == "kernel":
                 v = np.transpose(v, (3, 2, 0, 1))       # HWIO -> OIHW
             elif leaf == "scale":
                 bn_modules.append(prefix)
@@ -167,7 +196,8 @@ def _bridge(params, batch_stats, module_prefix) -> dict[str, torch.Tensor]:
 
 
 def bridge_ocrnet(params, batch_stats) -> dict[str, torch.Tensor]:
-    """flax OCRNet params/batch_stats -> the port's OCRNet state dict."""
+    """flax OCRNet params/batch_stats (any backbone: ResNet-18..101 or
+    HRNet) -> the port's OCRNet state dict."""
     return _bridge(params, batch_stats, _ocrnet_prefix)
 
 
@@ -187,6 +217,20 @@ def bridge_deeplabv3plus(params, batch_stats) -> dict[str, torch.Tensor]:
 
 
 def bridge_encdec_upernet(params, batch_stats) -> dict[str, torch.Tensor]:
-    """flax EncDec (ResNet encoder + UPerNet decoder) params/batch_stats ->
-    the port's state dict."""
-    return _bridge(params, batch_stats, _encdec_upernet_prefix)
+    """flax EncDec (ResNet, ResNeXt, WideResNet or Inception-v3 encoder +
+    UPerNet decoder) params/batch_stats -> the port's state dict."""
+    return _bridge(params, batch_stats, _encdec_prefix)
+
+
+def bridge_encdec_pointrend(params, batch_stats) -> dict[str, torch.Tensor]:
+    """flax EncDec (encoder + PointRend decoder) params/batch_stats -> the
+    port's state dict: the point head's Dense kernels as Conv1d weights."""
+    return _bridge(params, batch_stats, _encdec_prefix, dense_as_conv1d=True)
+
+
+def bridge_flax_names(params, batch_stats=None) -> dict[str, torch.Tensor]:
+    """flax FCN, UNet or SimpleDiscriminator params/batch_stats -> the
+    port's state dict, whose names are the flax modules' joined by dots
+    (FCN's transposed convolutions and the discriminator's `fc1`/`fc2`
+    Linear weights included)."""
+    return _bridge(params, batch_stats or {}, ".".join)

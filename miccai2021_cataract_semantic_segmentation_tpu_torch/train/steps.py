@@ -9,7 +9,11 @@ eval steps return NCHW float32 logits. `precision="bf16"` (the JAX
 package's default) runs the forward under bf16 autocast; any other value
 runs it in the model's parameter dtype (float32, or float64 in the parity
 tests). The semi-supervised train step (`semi`) labels the unlabelled
-half of its batch with `teacher_labels`, as the JAX package's does.
+half of its batch with `teacher_labels`, as the JAX package's does. With
+a PointRend point head (`has_point_head`) the train step draws the
+step's points from a generator seeded from (seed, step) (`step_points`)
+and adds the point head's cross-entropy (`point_loss`) as the
+`point_loss` term.
 """
 from __future__ import annotations
 
@@ -18,9 +22,13 @@ from dataclasses import dataclass
 
 import torch
 
-from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device
+from miccai2021_cataract_semantic_segmentation_tpu_torch import resolve_device, taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
     DeviceAugmentSpec)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import (
+    cross_entropy)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models.pointrend import (
+    PointDraws, PointRendDecoder, draw_points)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import (
     IMAGENET_MEAN, IMAGENET_STD, AugmentDraws, augment_batch, draw_augment,
     pad_reflect_hw, to_unit)
@@ -70,13 +78,16 @@ def eval_preprocess(images_u8: torch.Tensor, spec: EvalSpec | None,
     return x, lbl
 
 
-def _forward(model, x, precision: str, full_res=("logits",)) -> dict:
+def _forward(model, x, precision: str, full_res=("logits",), points=None) -> dict:
     """The model's outputs; `full_res` goes only to a model whose forward
     takes it (one that also gives stride-8 logits, such as OCRNet); the
-    others always give their full-resolution logits."""
+    others always give their full-resolution logits. `points` (a train
+    step's PointRend draws) goes to a model whose forward takes them."""
+    params = inspect.signature(model.forward).parameters
     kwargs = ({"full_res": tuple(dict.fromkeys(full_res))}
-              if "full_res" in inspect.signature(model.forward).parameters
-              else {})
+              if "full_res" in params else {})
+    if points is not None and "points" in params:
+        kwargs["points"] = points
     if precision == "bf16":
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
             return model(x, **kwargs)
@@ -111,9 +122,12 @@ def make_eval_step(spec: EvalSpec | None, num_classes: int,
 
 def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
                         device: str | torch.device = "cuda",
-                        precision: str = "bf16"):
+                        precision: str = "bf16", num_classes: int | None = None):
     """step(model, images_u8, labels_u8, epoch) -> (logits, labels, cm,
-    loss): the eval step plus the validation loss."""
+    loss): the eval step plus the validation loss. The matrix counts
+    `num_classes` classes where given (the eval step's: a UNet's extra
+    ignore channel is left out, as the eval step leaves it out), else the
+    logits' channels."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
@@ -125,7 +139,7 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
                            ("logits",) + _loss_full_res(loss_fn))
         total, _ = loss_fn(outputs, lbl, epoch=epoch)
         logits = outputs["logits"]
-        return logits, lbl, confusion_matrix(logits, lbl), total
+        return logits, lbl, confusion_matrix(logits, lbl, num_classes), total
 
     return step
 
@@ -143,6 +157,36 @@ def step_draws(spec: DeviceAugmentSpec, n: int, seed: int,
     gen = torch.Generator().manual_seed(
         (int(seed) & 0xFFFFFFFF) << 32 | (int(step) & 0xFFFFFFFF))
     return draw_augment(spec, n, gen)
+
+
+def point_decoder(model) -> PointRendDecoder | None:
+    """The model's PointRend decoder, or None."""
+    return next((m for m in model.modules() if isinstance(m, PointRendDecoder)), None)
+
+
+def step_points(decoder: PointRendDecoder, n: int, seed: int, step: int,
+                device) -> PointDraws:
+    """The PointRend draws of train step `step`: a generator seeded from
+    (seed, step) alone, a stream apart from `step_draws`' (the JAX step's
+    `points` key of `fold_in(rng, state.step)`)."""
+    key = ((int(seed) & 0xFFFFFFFF) << 32 | (int(step) & 0xFFFFFFFF)) ^ 0x9E3779B97F4A7C15
+    return draw_points(n, decoder.counts, torch.Generator().manual_seed(key), device)
+
+
+def point_loss(outputs: dict, labels: torch.Tensor, task: int,
+               ignore_override: int | None = None) -> torch.Tensor:
+    """PointRend's auxiliary cross-entropy on the sampled points (the
+    reference's EncDec_Manager.py:158-178): each point's label taken at
+    cell (clip(floor(y h)), clip(floor(x w))), the (B, C, P) point logits'
+    cross-entropy with the task's ignore id, or `ignore_override` (semi
+    mode's pseudo-ignore id, which tasks 0 and 1 would otherwise train on)."""
+    coords = outputs["point_coords"]
+    n, h, w = labels.shape
+    xi = torch.clamp(torch.floor(coords[..., 0] * w), 0, w - 1).long()
+    yi = torch.clamp(torch.floor(coords[..., 1] * h), 0, h - 1).long()
+    point_lbl = labels.reshape(n, h * w).gather(1, yi * w + xi)
+    ign = taxonomy.ignore_index(task) if ignore_override is None else ignore_override
+    return cross_entropy(outputs["point_logits"], point_lbl, ignore_index=ign)
 
 
 def debug_batch(x: torch.Tensor, lbl: torch.Tensor, logits: torch.Tensor,
@@ -182,7 +226,8 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                     seed: int = 0, debug_pred: bool = False,
                     has_point_head: bool = False, mesh=None,
                     semi: dict | None = None):
-    """step(state, images_u8, labels_u8, epoch, draws=None) -> metrics.
+    """step(state, images_u8, labels_u8, epoch, draws=None, points=None)
+    -> metrics.
 
     One update of `state` (train/state.py): the device augmentation of
     `spec` (draws from `step_draws(spec, n, seed, state.step)` unless
@@ -207,11 +252,14 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     the batch is [labelled half | unlabelled half], the unlabelled half's
     labels become `teacher_labels` of the augmented unlabelled images, the
     loss (SemiSupervisedLoss) splits the batch the same way, and the
-    confusion matrix counts the labelled half only."""
+    confusion matrix counts the labelled half only.
+
+    `has_point_head` (a PointRend decoder) gives the forward the step's
+    point draws (`step_points(decoder, n, seed, state.step)` unless
+    `points` gives draws or the points themselves) and adds `point_loss`
+    to the total and to the terms (with semi mode's `ignore_id`)."""
     if semi is not None and int(semi.get("n_shards", 1)) != 1:
         raise _not_ported("semi-supervised training over several GPUs", "15")
-    if has_point_head:
-        raise _not_ported("the PointRend point head", "12")
     if mesh is not None:
         raise _not_ported("training over several GPUs", "15")
     if train_metrics not in ("s8", "full"):
@@ -222,7 +270,8 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
         () if train_metrics == "s8" and not debug_pred else ("logits",))
 
     def step(state: TrainState, images_u8, labels_u8, epoch,
-             draws: AugmentDraws | None = None) -> dict:
+             draws: AugmentDraws | None = None,
+             points: PointDraws | torch.Tensor | None = None) -> dict:
         model = state.model
         images, labels = _to_device(images_u8, dev), _to_device(labels_u8, dev)
         if draws is None:
@@ -235,9 +284,17 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             pseudo = teacher_labels(model, x[half:], precision, semi["threshold"],
                                     semi["ignore_id"])
             lbl = torch.cat([lbl[:half], pseudo.to(lbl.dtype)])
+        decoder = point_decoder(model) if has_point_head else None
+        if decoder is not None and points is None:
+            points = step_points(decoder, x.shape[0], seed, state.step, dev)
         model.train()
-        outputs = _forward(model, x, precision, full_res)
+        outputs = _forward(model, x, precision, full_res, points)
         total, terms = loss_fn(outputs, lbl, epoch=epoch, step=state.step)
+        if has_point_head and "point_logits" in outputs:
+            p_loss = point_loss(outputs, lbl, task,
+                                None if semi is None else int(semi["ignore_id"]))
+            terms = {**terms, "point_loss": p_loss}
+            total = total + p_loss
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]

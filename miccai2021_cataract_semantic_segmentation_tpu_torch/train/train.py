@@ -43,6 +43,14 @@ def train_metrics_source(config: dict) -> str:
         ("s8" if uses_bucket_lovasz(config.get("loss") or {}) else "full")
 
 
+def has_point_head(graph: dict) -> bool:
+    """Whether a graph config has a PointRend decoder (the JAX Trainer's
+    `has_points`): the PointRend shorthand, or an EncDec whose decoder is
+    PointRend."""
+    return graph.get("model") == "PointRend" or \
+        (graph.get("decoder") or {}).get("model") == "PointRend"
+
+
 def train_steps(model: torch.nn.Module, config: dict, images: np.ndarray,
                 labels: np.ndarray, batches, *,
                 device: str | torch.device = "cuda", seed: int = 0,
@@ -72,7 +80,8 @@ def train_steps(model: torch.nn.Module, config: dict, images: np.ndarray,
     step = make_train_step(loss_fn, spec, task, device=dev,
                            precision=config.get("precision", "bf16"),
                            train_metrics=train_metrics_source(config),
-                           seed=seed)
+                           seed=seed,
+                           has_point_head=has_point_head(config.get("graph", {})))
     losses, cm_total = [], None
     n_frames = 0
     t0 = time.perf_counter()

@@ -29,11 +29,18 @@ second half with the model's own confident predictions
 (train/steps.py:`teacher_labels`), an epoch covers the labelled set at
 half the batch size, the index histogram counts labelled frames only and
 the validation loss is the labelled loss alone. `graph.ss_pretrained:
-"moco"` initialises the backbone from a MoCo-v2 checkpoint.
+"moco"` initialises the backbone from a MoCo-v2 checkpoint. A PointRend
+graph trains with its point loss (train/steps.py).
 
-Not ported yet, and raising with their ROADMAP Queue A items: TTA and the
-unlabelled pool from the training split's videos (item 13), the Ensemble
-(item 12).
+With the graph `{"model": "Ensemble", "members": {...}, "merge": ...}`
+(or `manager: "Ensemble"` with `members` and `merge` at the top level) the
+Trainer runs in inference mode only, as the JAX Trainer does: each member
+is restored from its run's `chkpt_best.pt` (models/ensemble.py), the eval
+preprocessing pads without normalising (the members normalise where they
+were trained so), and `infer()` counts the merged probabilities' argmax.
+
+Not ported yet, and raising with their ROADMAP Queue A item: TTA and the
+unlabelled pool from the training split's videos (item 13).
 """
 from __future__ import annotations
 
@@ -61,7 +68,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.samplers import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import (
     build_transform_pipeline)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
-from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models import (
+    build_ensemble, build_model)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
     mean_iou_breakdown, normalise_confusion_matrix, pixel_accuracy)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.remap import mask_to_colormap
@@ -74,7 +82,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import crea
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
     EvalSpec, make_eval_loss_step, make_eval_step, make_train_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
-    train_metrics_source)
+    has_point_head, train_metrics_source)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -128,8 +136,10 @@ class Trainer:
         # an empty loss section is cross-entropy, a nameless {"losses": ...}
         # the LossWrapper (build_loss)
         loss_cfg = config.get("loss") or {}
-        if graph.get("model") == "Ensemble" or config.get("manager") == "Ensemble":
-            raise _not_ported("the Ensemble", "12")
+        self.ensemble = graph.get("model") == "Ensemble" or \
+            config.get("manager") == "Ensemble"
+        if self.ensemble and self.mode != "inference":
+            raise ValueError("the Ensemble runs in inference mode only")
         self.semi = (loss_cfg.get("name") == "SemiSupervisedLoss"
                      and self.mode == "training")
 
@@ -205,42 +215,6 @@ class Trainer:
         self.epoch_steps = [self._expected_steps(self.train_schedule[e])
                             for e in range(self.epochs)]
 
-        # model, loss, eval steps ------------------------------------------
-        self.precision = config.get("precision", "bf16")
-        self.model = build_model(graph, self.task, device=self.device, seed=self.seed)
-        self.loss_fn = build_loss(loss_cfg, self.task, self.device)
-        if graph.get("ss_pretrained"):
-            self._load_ss_pretrained(graph["ss_pretrained"])
-        if config.get("torch_checkpoint"):
-            self._load_torch_checkpoint(config["torch_checkpoint"])
-        # validation pads where "pad" is listed and "crop" is not, and
-        # normalises where "pad" and "torchvision_normalise" are: the JAX
-        # Trainer's eval spec is its train device spec where "pad" is listed
-        spec = EvalSpec(pad=self.pipeline.device.pad,
-                        normalise=self.pipeline.device.normalise) \
-            if self.pipeline.valid_pad else None
-        self.num_classes = taxonomy.TASK_NUM_CLASSES[self.task]
-        self.eval_step = make_eval_step(spec, self.num_classes, self.device,
-                                        self.precision)
-        # validation batches are fully labelled: in semi mode their loss is
-        # the labelled term's loss alone
-        valid_loss_fn = build_loss(dict(loss_cfg.get("labeled", {"name": "CrossEntropyLoss"})),
-                                   self.task, self.device) if self.semi else self.loss_fn
-        self.eval_loss_step = make_eval_loss_step(valid_loss_fn, spec, self.device,
-                                                  self.precision)
-        # the train state in every mode, so that load_checkpoint("last")
-        # restores the optimiser and the step
-        self.schedule = make_schedule(config["train"], self.epoch_steps)
-        self.state = create_train_state(self.model, config["train"], self.schedule)
-        self.num_params = sum(p.numel() for p in self.model.parameters())
-        self.debugging = bool(config.get("debugging", False))
-        semi_spec = {"threshold": float(loss_cfg.get("pseudo_threshold", 0.9)),
-                     "ignore_id": self.num_classes} if self.semi else None
-        self.train_step = make_train_step(
-            self.loss_fn, self.pipeline.device, self.task, device=self.device,
-            precision=self.precision, train_metrics=train_metrics_source(config),
-            seed=self.seed, debug_pred=self.debugging, semi=semi_spec)
-
         # bookkeeping ------------------------------------------------------
         self.train_writer = TBLogger(self.run_dir / "train")
         self.valid_writer = TBLogger(self.run_dir / "valid")
@@ -255,6 +229,61 @@ class Trainer:
         self.adaptive_sampler: AdaptiveBatchSampler | None = None
         self.log_every_n_epochs = int(config.get("log_every_n_epochs", 100))
         self.log_every_n_steps = int(config.get("log_every_n_steps", 50))
+
+        # model, loss, eval steps ------------------------------------------
+        self.precision = config.get("precision", "bf16")
+        self.num_classes = taxonomy.TASK_NUM_CLASSES[self.task]
+        if self.ensemble:
+            self._init_ensemble(graph or {k: config[k] for k in ("members", "merge")
+                                          if k in config})
+            return
+        self.model = build_model(graph, self.task, device=self.device, seed=self.seed)
+        self.loss_fn = build_loss(loss_cfg, self.task, self.device)
+        if graph.get("ss_pretrained"):
+            self._load_ss_pretrained(graph["ss_pretrained"])
+        if config.get("torch_checkpoint"):
+            self._load_torch_checkpoint(config["torch_checkpoint"])
+        # validation pads where "pad" is listed and "crop" is not, and
+        # normalises where "pad" and "torchvision_normalise" are: the JAX
+        # Trainer's eval spec is its train device spec where "pad" is listed
+        spec = EvalSpec(pad=self.pipeline.device.pad,
+                        normalise=self.pipeline.device.normalise) \
+            if self.pipeline.valid_pad else None
+        self.eval_step = make_eval_step(spec, self.num_classes, self.device,
+                                        self.precision)
+        # validation batches are fully labelled: in semi mode their loss is
+        # the labelled term's loss alone
+        valid_loss_fn = build_loss(dict(loss_cfg.get("labeled", {"name": "CrossEntropyLoss"})),
+                                   self.task, self.device) if self.semi else self.loss_fn
+        self.eval_loss_step = make_eval_loss_step(valid_loss_fn, spec, self.device,
+                                                  self.precision, self.num_classes)
+        # the train state in every mode, so that load_checkpoint("last")
+        # restores the optimiser and the step
+        self.schedule = make_schedule(config["train"], self.epoch_steps)
+        self.state = create_train_state(self.model, config["train"], self.schedule)
+        self.num_params = sum(p.numel() for p in self.model.parameters())
+        self.debugging = bool(config.get("debugging", False))
+        semi_spec = {"threshold": float(loss_cfg.get("pseudo_threshold", 0.9)),
+                     "ignore_id": self.num_classes} if self.semi else None
+        self.train_step = make_train_step(
+            self.loss_fn, self.pipeline.device, self.task, device=self.device,
+            precision=self.precision, train_metrics=train_metrics_source(config),
+            seed=self.seed, debug_pred=self.debugging, semi=semi_spec,
+            has_point_head=has_point_head(graph))
+
+    def _init_ensemble(self, graph: dict) -> None:
+        """Inference-only Ensemble (the reference's Ensemble_Manager.py:7-16
+        and BaseManager.infer): the members of `graph` restored from
+        `<log_path>/<ckpt>/chkpts/chkpt_best.pt`, the eval step on their
+        merged probabilities, the pad alone as preprocessing."""
+        self.model = build_ensemble(graph, self.task, self.config.get("log_path", "logs"),
+                                    self.device)
+        spec = EvalSpec(pad=True) if self.pipeline.valid_pad else None
+        self.eval_step = make_eval_step(spec, self.num_classes, self.device,
+                                        self.precision)
+        self.state = None
+        self.num_params = sum(p.numel() for p in self.model.parameters())
+        self.debugging = bool(self.config.get("debugging", False))
 
     def close(self) -> None:
         self.train_writer.close()

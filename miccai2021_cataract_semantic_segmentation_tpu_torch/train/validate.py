@@ -46,7 +46,7 @@ def validate(model, config: dict, images: np.ndarray, labels: np.ndarray,
     loss_fn = build_loss(config.get("loss") or {"name": "CrossEntropyLoss"},
                          task, dev)
     eval_step = make_eval_step(spec, num_classes, dev, precision)
-    eval_loss_step = make_eval_loss_step(loss_fn, spec, dev, precision)
+    eval_loss_step = make_eval_loss_step(loss_fn, spec, dev, precision, num_classes)
 
     n = len(images)
     bs = min(batch_size or int(config.get("valid_batch_size") or 8), n)

@@ -215,5 +215,21 @@ def test_torch_pad_matches():
                                    {"model": "OCRNet", "backbone": "hrnetv2_w18"},
                                    {"model": "OCRNet", "backbone": "resnet18"}])
 def test_graphs_of_later_slices_raise(graph):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(graph, 2, device="cpu")
+    """Once raising, these graphs now build (ROADMAP item 12): the port's
+    eval outputs have the JAX model's keys and shapes (NCHW for NHWC)."""
+    assert_outputs_like_jax(graph)
+
+
+def assert_outputs_like_jax(graph, hw=(64, 96)):
+    """Build `graph` in both packages (task 2); the port's eval forward
+    on a 2 x hw input gives the keys and shapes of the JAX model's."""
+    model = jax_build_model(graph, 2)
+    x = jnp.zeros((2, *hw, 3), jnp.float32)
+    want = jax.eval_shape(lambda x: model.init_with_output(
+        jax.random.PRNGKey(0), x, False)[0], x)
+    port = build_model(graph, 2, device="cpu")
+    with torch.no_grad():
+        got = port(torch.zeros(2, 3, *hw))
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert tuple(got[key].shape) == (w.shape[0], w.shape[3], *w.shape[1:3]), key

@@ -329,7 +329,7 @@ def test_cli_serves_a_published_run(served):
 
 
 def test_trainer_refuses_what_is_not_ported(served):
-    root, config, *_ = served
+    root, config, *_, port_infer, _ = served
     for change, item in (({"tta": True}, "item 13"),):
         t = Trainer(dict(config, run_id="tta", **change), device="cpu")
         with pytest.raises(NotImplementedError, match=item):
@@ -338,11 +338,17 @@ def test_trainer_refuses_what_is_not_ported(served):
     # the semi-supervised mode's pool of the training videos waits for the
     # video decode; the semi mode with a given pool, MoCo and the host
     # transforms are ported (tests/test_torch_semi.py, test_torch_host_transforms.py)
-    for change, item in (({"graph": {"model": "Ensemble"}}, "item 12"),
-                         ({"loss": {"name": "SemiSupervisedLoss"}, "mode": "training",
-                           "data": dict(config["data"], batch_size=2)}, "item 13")):
+    for change, item in (({"loss": {"name": "SemiSupervisedLoss"}, "mode": "training",
+                           "data": dict(config["data"], batch_size=2)}, "item 13"),):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(dict(config, run_id="x", **change), device="cpu")
+    # the Ensemble (item 12) is ported: one member, the served run's best
+    # checkpoint, counts what the served Trainer's infer() counted
+    ens = Trainer(dict(config, run_id="ensemble", graph={
+        "model": "Ensemble", "members": {"a": dict(OCR, ckpt="port")}}), device="cpu")
+    _close(ens.infer()["confusion_matrix"], np.asarray(port_infer["confusion_matrix"]),
+           {}, {}, ())
+    ens.close()
     with pytest.raises(FileNotFoundError, match="moco_v2_800ep_pretrain"):
         Trainer(dict(config, run_id="x", graph=dict(OCR, ss_pretrained="moco"),
                      ss_pretrained_path=str(root / "no_moco")), device="cpu")

@@ -407,8 +407,28 @@ def test_encdec_graph_rule_matches_jax():
     ({"model": "OCRNet", "backbone": "resnet34"}, "ResNet-18/34"),
 ])
 def test_later_parts_of_encdec_raise(graph, match):
-    with pytest.raises(NotImplementedError, match=f"{match}.*item 12"):
-        build_model(graph, 2, device="cpu")
+    """Once raising, these parts now build (ROADMAP item 12): PointRend's
+    decoder, the Inception encoder, ResNeXt's grouped blocks and OCRNet-R34's
+    stride-2 interm head, each with the JAX model's output keys and shapes
+    at 96 x 128 (the Inception encoder's logits at the input's size)."""
+    model = build_model(graph, 2, device="cpu")
+    part = {"PointRend": lambda: type(model.dec_model).__name__ == "PointRendDecoder",
+            "Inception": lambda: type(model.enc_model).__name__ == "InceptionV3Encoder",
+            "resnext50_32x4d": lambda: model.enc_model.layer1[0].conv2.groups == 32,
+            "ResNet-18/34": lambda: model.interm_prediction_head[0].stride == (2, 2)}
+    assert part[match]()
+    jmodel = jax_build_model(graph, 2)
+    x = jnp.zeros((1, 96, 128, 3), jnp.float32)
+    want = jax.eval_shape(lambda x: jmodel.init_with_output(
+        jax.random.PRNGKey(0), x, False)[0], x)
+    with torch.no_grad():
+        got = model(torch.zeros(1, 3, 96, 128))
+    assert set(got) == set(want)
+    for key, w in want.items():
+        shape = (1, w.shape[3], *w.shape[1:3])
+        if match == "Inception" and key == "logits":
+            shape = (1, w.shape[3], 96, 128)
+        assert tuple(got[key].shape) == shape, key
 
 
 @pytest.mark.parametrize("name", ["DenseContrastiveLoss", "DenseContrastiveLossV2"])
