@@ -222,7 +222,33 @@ Phases (any failure raises and the run exits non-zero):
      OCRNet-R50 and a UPerNet-R34, each saved as chkpt_best.pt after one
      step, through the CLI in inference mode with mean and with max merge,
      its matrix and mIoU equal to the functional `ensemble_apply` on the
-     same batches.
+     same batches;
+ 25. the served extras, on the same tree: (a) OCRNet-R50 t2
+     (configs/OCRNet_pretrained_t2.json, a seed-0 checkpoint) through the
+     CLI with `"tta": true` at valid batch 8 (flip x scales 0.75-2.0), its
+     matrix equal to the in-process `infer(tta=True)`'s, no kernel
+     launched, frames/s and peak memory; the TTA step and the eval step
+     alone on a batch already on the card (CUDA events) and one TTA step
+     profiled: the device's rate and busy share; the TTA probabilities on
+     the card (float32, TF32 off) against the CPU (float64) at one 136x240
+     frame within 1e-4; (b) two 540x960 videos of 13 and 11 frames written by
+     the port's AVI writer under workflow/test/, through both video modes
+     of the CLI with `demo_frame_freq` 1 and 2 and decode workers 1 and 4,
+     each output read back by the port's reader equal to the colormap of
+     the in-process eval step's argmax over the same batches, the codec,
+     frames/s, no kernel launched; (c) `export_trainer` of that model, of
+     its TTA variant and of an Ensemble (it and a UPerNet-R34), each `.pt2`
+     loaded in a process that blocks the port package and served at batch
+     1 and 8: the class of at most 1e-3 of the pixels and the confidence
+     within 5e-3 of the Trainer's steps at the same precision (bf16), the
+     export s, the serve ms (median and quartiles of 20 calls at batch 1
+     and 10 at batch 8, after 2 warm-up calls) and, at batch 1, the
+     device's busy ms and operations a call (profiler); (d) the flagship with SemiSupervisedLoss
+     and no given pool: the pool is two training-split videos in the
+     port's AVI under their release names (train_1/train01.mp4,
+     train_1/train03.mp4), `Trainer.train` for one epoch, the pool's length
+     (the labelled frames left out), and one B3 a half and one B4f a scale
+     a half each step, one B1 a validation batch.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -3722,6 +3748,478 @@ def phase24_remaining_graphs(dev, data) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the served extras: TTA, video inference, the serving export and
+# the semi mode's pool of the training videos
+# ---------------------------------------------------------------------------
+
+VIDEO_HW = (540, 960)
+VIDEO_FRAMES = (13, 11)
+POOL_TRAIN_VIDEOS = (1, 3)           # split 2's first training videos
+TTA_CPU_HW = (136, 240)              # the reduced frame of TTA card vs CPU
+TTA_CPU_TOL = 1e-4                   # largest |probability| difference, f32 vs f64
+EXPORT_PRED_SHARE = 1e-3             # share of pixels whose class may differ
+EXPORT_CONF_TOL = 5e-3               # largest |confidence| difference (bf16 steps)
+# (mode, demo_frame_freq, decode workers, cv2 hidden from data/video_io.py)
+VIDEO_RUNS = (("video_inference", 1, 1, True), ("video_inference", 2, 4, True),
+              ("demo_video_inference", 1, 4, True), ("demo_video_inference", 2, 1, True),
+              ("demo_video_inference", 1, 4, False))
+
+_SERVE_ALONE = """
+import json, os, statistics, sys, time
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax",
+                                  "miccai2021_cataract_semantic_segmentation_tpu",
+                                  "miccai2021_cataract_semantic_segmentation_tpu_torch"):
+            raise ImportError("blocked import of " + name)
+        return None
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+
+
+def wait_for(path):
+    deadline = time.perf_counter() + 900
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            sys.exit("no " + path)
+        time.sleep(0.1)
+
+
+def timed(fn):
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+# device ms a call (kernels and copies, torch.profiler) and the device
+# operations a call launches
+def device_busy(fn, calls=3):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False) or "#" in ev.key):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        us += ev.self_cuda_time_total if t is None else t
+        n += ev.count
+    return us / 1e3 / calls, n // calls
+
+
+# calls a batch: warm-up, then timed (CUDA events; batch 1 spreads the most)
+WARM, TIMED = 2, {1: 20, 8: 10}
+dev = torch.device(sys.argv[1])
+frames = torch.from_numpy(np.load(sys.argv[2])).to(dev)
+paths = sys.argv[3:]
+programs, out = {}, {}
+for path in paths:          # each loads once the exporting process marks it ready
+    wait_for(path + ".ready")
+    t = time.perf_counter()
+    programs[path] = torch.export.load(path).module()
+    out[path] = {"load_s": time.perf_counter() - t}
+wait_for(sys.argv[2] + ".exports_done")   # served with the host to itself
+
+for path in paths:
+    res = {}
+    with torch.no_grad():
+        for b in (1, 8):
+            x = frames[:b].contiguous()
+            for _ in range(WARM):
+                got = programs[path](x)
+            times = [timed(lambda: programs[path](x)) for _ in range(TIMED[b])]
+            q1, median, q3 = statistics.quantiles(times, n=4)
+            rec = {"median": median, "q1": q1, "q3": q3, "min": min(times),
+                   "max": max(times), "calls": TIMED[b]}
+            if b == 1 and dev.type == "cuda":
+                rec["busy_ms"], rec["device_ops"] = device_busy(lambda: programs[path](x))
+                rec["busy_share"] = rec["busy_ms"] / rec["median"]
+            res[b] = (got["pred"].cpu().numpy(), got["confidence"].cpu().numpy(), rec)
+    np.savez(path + ".served.npz", pred1=res[1][0], conf1=res[1][1],
+             pred8=res[8][0], conf8=res[8][1])
+    out[path].update(ms_b1=res[1][2]["median"], ms_b8=res[8][2]["median"],
+                     serve_b1=res[1][2], serve_b8=res[8][2])
+print(json.dumps({"served": out, "port_modules": sorted(
+    m for m in sys.modules if m.startswith("miccai"))}))
+"""
+
+
+def _write_video(path, images) -> None:
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import video_io
+    writer = video_io.AviWriter(path, 25, (images.shape[2], images.shape[1]))
+    for f in images:
+        writer.write(f)
+    writer.release()
+
+
+def tta_card_vs_cpu(dev, model, spec) -> float:
+    """TTA's merged probabilities of one reduced frame on the card (float32,
+    TF32 off) against the CPU in float64; the largest difference."""
+    import copy
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        TTA_SCALES, _forward, eval_preprocess, tta_merged_probs)
+    images, _ = train_from_disk_set(*TTA_CPU_HW, seed=5, block=17)
+    x = eval_preprocess(torch.as_tensor(images[:1]), spec)
+    cpu = copy.deepcopy(model).cpu().double().eval()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got = tta_merged_probs(lambda xi: _forward(model, xi, "f32")["logits"],
+                                   x.to(dev), TTA_SCALES).double().cpu()
+            want = tta_merged_probs(lambda xi: _forward(cpu, xi, "f64")["logits"],
+                                    x.double(), TTA_SCALES)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    diff = float((got - want).abs().max())
+    print(f"TTA card (float32, TF32 off) vs CPU (float64) at one {TTA_CPU_HW} frame: "
+          f"largest probability difference {diff!r} (gate {TTA_CPU_TOL}); argmax "
+          f"differs on {int((got.argmax(1) != want.argmax(1)).sum())} of "
+          f"{want[:, 0].numel()} pixels", flush=True)
+    if not diff <= TTA_CPU_TOL:
+        raise AssertionError(f"TTA card vs CPU {diff} > {TTA_CPU_TOL}")
+    return diff
+
+
+def tta_device_rate(dev, trainer) -> dict:
+    """The TTA step and the eval step alone on one batch of 8 validation
+    frames already on the card (CUDA events), and one TTA step under the
+    profiler: the device's rate, its busy share and where its time goes."""
+    frames = np.stack([trainer.valid_set[i][0] for i in range(8)])
+    x = torch.as_tensor(frames).to(dev)
+    lbl = torch.zeros(x.shape[:3], dtype=torch.uint8, device=dev)
+    tta_step = trainer._make_tta_step()
+    tta_ms = cuda_ms(lambda: tta_step(trainer.model, x, lbl), reps=3, warmup=1)
+    eval_ms = cuda_ms(lambda: trainer.eval_step(trainer.model, x, lbl), reps=10)
+    groups = profile_step(lambda: tta_step(trainer.model, x, lbl), "TTA batch 8", steps=1)
+    busy_ms = sum(groups.values())
+    rec = {"tta_step_ms": tta_ms, "tta_device_frames_per_sec": 8e3 / tta_ms,
+           "eval_step_ms": eval_ms, "eval_device_frames_per_sec": 8e3 / eval_ms,
+           "tta_over_eval": tta_ms / eval_ms, "tta_busy_ms": busy_ms,
+           "tta_busy_share": busy_ms / tta_ms}
+    print(f"TTA step alone at batch 8 on the card: {json.dumps(rec)} (CUDA events, "
+          f"median of 3; the eval step median of 10; busy from one profiled step)",
+          flush=True)
+    return rec
+
+
+def _expected_video(trainer, paths, freq, side) -> dict:
+    """{output name: frames}: the colormap of the in-process eval step's
+    argmax over demo_infer's chunks (batch 8, the tail padded)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import VideoDataset
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.remap import mask_to_colormap
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.video import _chunks
+    h, w = VIDEO_HW
+    ds = VideoDataset(paths, h, w)
+    indices = np.concatenate([np.arange(ds.offsets[v], ds.offsets[v + 1], freq)
+                              for v in range(len(paths))])
+    out = {f"{pathlib.Path(p).stem}_OCRNet.avi": [] for p in paths}
+    names = list(out)
+    dummy = np.zeros((8, h, w), np.uint8)
+    for chunk, n_valid in _chunks(indices, 8):
+        items = [ds[int(j)] for j in chunk]
+        frames = np.stack([f for f, _, _ in items])
+        logits, _, _ = trainer.eval_step(trainer.model, frames, dummy)
+        preds = logits.argmax(1).to(torch.uint8).cpu().numpy()
+        off = (preds.shape[1] - h) // 2
+        preds = preds[:, off:off + h]
+        for k in range(n_valid):
+            colour = mask_to_colormap(preds[k], 2)
+            img = np.concatenate([frames[k], colour], axis=1) if side else colour
+            out[names[items[k][2]]].append(img)
+    return out
+
+
+def phase25_served_extras(dev, data) -> dict:
+    """(a) TTA through the CLI (`"tta": true`, valid batch 8) on
+    OCRNet-R50 t2, its matrix equal to the in-process `infer(tta=True)`'s,
+    no kernel launched, frames/s and peak memory, the TTA step's rate on
+    the card alone (`tta_device_rate`), and card vs CPU at one reduced
+    frame; (b) two 540x960 videos written by the port's AVI writer
+    through both video modes of the CLI, `demo_frame_freq` 1 and 2, decode
+    workers 1 and 4, each output read back by the port's reader equal to
+    the colormap of the in-process eval step's argmax; (c) `export_trainer`
+    of OCRNet-R50 t2, its TTA variant and an Ensemble, each `.pt2` served
+    at batch 1 and 8 in a process that blocks the port package, against
+    the Trainer's steps, the serve ms with their spread and the batch-1
+    call's device time; (d) the flagship semi recipe with no given pool,
+    its pool the training split's videos in the port's AVI: `Trainer.train`
+    for one epoch, the pool's length and the launches. Returns the
+    measurements, (d)'s launches among them, and each part's wall s."""
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import main as port_main
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data import video_io
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import VideoDataset
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.semi import (
+        excluded_frames_from_df, video_files_from_split)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train import export
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import parse_config
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_extras_"))
+    logs = tmp / "logs"
+    out: dict = {"part_s": {}}
+    t_part = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["part_s"][part] = now - t_part[0]
+        print(f"phase 25{part} took {now - t_part[0]!r} s wall", flush=True)
+        t_part[0] = now
+
+    try:
+        model = build_model({"model": "OCRNet", "backbone": "resnet50", "out_stride": 8},
+                            2, device=dev, seed=0)
+        save_checkpoint(logs / "published_t2" / "chkpts", "best", model, 0, 0.0, 0.0)
+        base = dict(parse_config(os.path.join(ROOT, "configs", PRETRAINED[1])),
+                    data_path=str(data), log_path=str(logs),
+                    load_checkpoint="published_t2", valid_batch_size=8)
+
+        # (a) TTA through the CLI and in process
+        cfg_path = tmp / "tta.json"
+        cfg_path.write_text(json.dumps(dict(base, tta=True, run_id="tta_cli")))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        cli = port_main.main(["-c", str(cfg_path), "-dp", str(data)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, peak = launch_counts(), torch.cuda.max_memory_allocated()
+        trainer = Trainer(dict(base, run_id="tta_inproc"), device=dev)
+        trainer.load_checkpoint("best", run_id="published_t2")
+        inproc = trainer.infer(tta=True)
+        same = cli["confusion_matrix"] == inproc["confusion_matrix"]
+        n_px = int(np.asarray(cli["confusion_matrix"]).sum())
+        print(f"TTA through the CLI (OCRNet-R50 t2, valid batch 8, scales 0.75-2.0 x "
+              f"flip): {cli['frames_per_sec']!r} frames/s (host clock, warm-up "
+              f"excluded), {wall!r} s wall, peak memory {peak} bytes, miou "
+              f"{cli['miou']!r}, {n_px} pixels; in process {inproc['frames_per_sec']!r} "
+              f"frames/s; matrices equal {same}", flush=True)
+        _expect_launches(launches, {}, "TTA through the CLI")
+        if not (same and cli["tta"] and n_px > 0):
+            raise AssertionError("TTA through the CLI and in process disagree")
+        out["tta"] = {"frames_per_sec": cli["frames_per_sec"], "peak_bytes": peak,
+                      "card_vs_cpu": tta_card_vs_cpu(dev, trainer.model, trainer.eval_spec)}
+        out["tta"].update(tta_device_rate(dev, trainer))
+
+        lap("a")
+
+        # (b) video inference through the CLI
+        images, _ = train_from_disk_set(*VIDEO_HW, seed=2)
+        cadis = tmp / "cadis"
+        shutil.copytree(data, cadis / "data")
+        vdir = cadis / "workflow" / "test" / "videos"
+        vdir.mkdir(parents=True)
+        clips = np.split(images[:sum(VIDEO_FRAMES)], [VIDEO_FRAMES[0]])
+        paths = [vdir / f"dev{k + 1:02d}.mp4" for k in range(2)]
+        t = time.perf_counter()
+        for path, clip in zip(paths, clips):
+            _write_video(path, clip)
+        write_s = time.perf_counter() - t
+        reader = video_io.open_reader(paths[0])
+        read_t = time.perf_counter()
+        for i in range(reader.frame_count):
+            reader.read(i)
+        read_ms = (time.perf_counter() - read_t) * 1e3 / reader.frame_count
+        print(f"videos: {VIDEO_FRAMES} frames of {VIDEO_HW} written by the port's AVI "
+              f"writer in {write_s!r} s ({sum(p.stat().st_size for p in paths)} bytes); "
+              f"the port's reader {read_ms!r} ms a frame", flush=True)
+        expected = {}
+        video_base = dict(base, data_path=str(cadis / "data"),
+                          video_ids=[p.stem for p in paths], video_height=VIDEO_HW[0],
+                          video_width=VIDEO_HW[1])
+        out["video"] = []
+        installed_cv2 = video_io.cv2
+        for mode, freq, workers, hide_cv2 in VIDEO_RUNS:
+            run = f"{mode}_f{freq}_w{workers}" + ("" if hide_cv2 else "_as_installed")
+            cfg = dict(video_base, mode=mode, run_id=run, demo_frame_freq=freq,
+                       video_decode_workers=workers)
+            (tmp / f"{run}.json").write_text(json.dumps(cfg))
+            reset_launches()
+            # the port's own AVI, lossless, where cv2 would write XVID
+            video_io.cv2 = None if hide_cv2 else installed_cv2
+            t = time.perf_counter()
+            try:
+                res = port_main.main(["-c", str(tmp / f"{run}.json"), "-dp",
+                                      str(cadis / "data")])
+            finally:
+                video_io.cv2 = installed_cv2
+            wall = time.perf_counter() - t
+            side = mode == "demo_video_inference"
+            if (freq, side) not in expected:
+                expected[(freq, side)] = _expected_video(trainer, [str(p) for p in paths],
+                                                         freq, side)
+            want = expected[(freq, side)]
+            lossless = res["codec"] == ["avi_raw"]     # XVID where cv2 imports
+            for name in want:
+                got = video_io.open_reader(logs / run / name)
+                ok = got.frame_count == len(want[name]) and (not lossless or all(
+                    np.array_equal(got.read(i), f) for i, f in enumerate(want[name])))
+                if not ok:
+                    raise AssertionError(f"{run}: {name} differs from the eval step's "
+                                         "colormap")
+            print(f"video {run} (cv2 {'hidden' if hide_cv2 else 'as installed'}: "
+                  f"{installed_cv2 is not None}): {res['frames']} frames, codec {res['codec']}, readers "
+                  f"{res['readers']}, {res['frames_per_sec']!r} frames/s, {wall!r} s "
+                  f"wall in process; every output frame "
+                  f"{'equal to' if lossless else 'counted against'} the eval step's "
+                  f"colormap", flush=True)
+            _expect_launches(launch_counts(), {}, f"video {run}")
+            out["video"].append({"run": run, "frames_per_sec": res["frames_per_sec"],
+                                 "codec": res["codec"]})
+
+        lap("b")
+
+        # (c) the serving export, served in a process without the port
+        members = {"a_ocrnet_r50": {"model": "OCRNet", "backbone": "resnet50",
+                                    "out_stride": 8, "ckpt": "published_t2"},
+                   "b_upernet_r34": {"model": "EncDec", "encoder": {"model": "ResNet34"},
+                                     "decoder": {"model": "UPerNet"}, "ckpt": "upn"}}
+        upn = build_model({k: v for k, v in members["b_upernet_r34"].items() if k != "ckpt"},
+                          2, device=dev, seed=1)
+        save_checkpoint(logs / "upn" / "chkpts", "best", upn, 0, 0.0, 0.0)
+        del upn
+        ens = Trainer(dict(base, run_id="ens", graph={"model": "Ensemble",
+                                                       "members": members}), device=dev)
+        frames = np.stack([trainer.valid_set[i][0] for i in range(8)])
+        dummy = np.zeros(frames.shape[:3], np.uint8)
+        # the class and confidence of the Trainer's steps at batch 8 and at 1
+        variants = (("ocrnet", trainer, False), ("ocrnet_tta", trainer, True),
+                    ("ensemble", ens, False))
+        refs = {}
+        for name, tr, tta in variants:
+            step = tr._make_tta_step() if tta else tr.eval_step
+            refs[name] = {}
+            for b in (8, 1):
+                with torch.inference_mode():
+                    out_step, _, _ = step(tr.model, frames[:b], dummy[:b])
+                    out_step = out_step.float()
+                    conf = (out_step.amax(1) if tta or tr.ensemble
+                            else torch.softmax(out_step, 1).amax(1))
+                refs[name][b] = (out_step.argmax(1).cpu().numpy(), conf.cpu().numpy())
+        # the serving process starts now and loads each artifact once it is
+        # marked ready, while the next one is exported; it serves them when
+        # the exports are done
+        np.save(tmp / "frames.npy", frames)
+        artifacts = {name: tmp / f"{name}{export.SUFFIX}" for name, _, _ in variants}
+        t_serve = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", _SERVE_ALONE, str(dev),
+                                 str(tmp / "frames.npy")]
+                                + [str(artifacts[k]) for k in artifacts],
+                                cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        try:
+            export_s = {}
+            for name, tr, tta in variants:
+                t = time.perf_counter()
+                if export.export_trainer(tr, tmp / name, tta=tta) != artifacts[name]:
+                    raise AssertionError(f"export_trainer wrote elsewhere than "
+                                         f"{artifacts[name]}")
+                torch.cuda.synchronize()
+                export_s[name] = time.perf_counter() - t
+                pathlib.Path(str(artifacts[name]) + ".ready").touch()
+            pathlib.Path(str(tmp / "frames.npy") + ".exports_done").touch()
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"serving without the port exited {proc.returncode}:\n"
+                                 f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        served = json.loads(stdout.strip().splitlines()[-1])
+        if served["port_modules"]:
+            raise AssertionError(f"the serving process imported {served['port_modules']}")
+        out["export"] = {}
+        for name, path in artifacts.items():
+            got = np.load(str(path) + ".served.npz")
+            (pred, conf), (pred1, conf1) = refs[name][8], refs[name][1]
+            share = float((got["pred8"] != pred).mean())
+            conf_diff = float(np.abs(got["conf8"] - conf).max())
+            b1_share = float((got["pred1"] != pred1).mean())
+            b1_conf = float(np.abs(got["conf1"] - conf1).max())
+            rec = dict(served["served"][str(path)], export_s=export_s[name],
+                       pred_share=share, conf_diff=conf_diff, b1_share=b1_share,
+                       b1_conf_diff=b1_conf, mb=path.stat().st_size / 1e6)
+            print(f"export {name}: {json.dumps(rec)} (against the Trainer's step at the "
+                  f"same precision; gates: pred share {EXPORT_PRED_SHARE}, confidence "
+                  f"{EXPORT_CONF_TOL})", flush=True)
+            if not (share <= EXPORT_PRED_SHARE and conf_diff <= EXPORT_CONF_TOL
+                    and b1_share <= EXPORT_PRED_SHARE and b1_conf <= EXPORT_CONF_TOL):
+                raise AssertionError(f"the served {name} disagrees with the Trainer")
+            out["export"][name] = rec
+        print(f"exports and the serving process beside them: "
+              f"{time.perf_counter() - t_serve!r} s wall", flush=True)
+        ens.close()
+        trainer.close()
+        del ens, trainer, model
+        torch.cuda.empty_cache()
+
+        lap("c")
+
+        # (d) the semi recipe's pool from the training videos
+        table_videos = video_files_from_split(list(POOL_TRAIN_VIDEOS))
+        for rel, clip in zip(table_videos, clips):
+            (data / rel).parent.mkdir(parents=True, exist_ok=True)
+            _write_video(data / rel, clip)
+        flagship = json.loads(pathlib.Path(CONFIG).read_text())
+        cfg = dict(flagship, loss={"name": "SemiSupervisedLoss", "labeled": flagship["loss"],
+                                   "pseudo_threshold": SEMI_THRESHOLD},
+                   train=dict(flagship["train"], epochs=1), data_path=str(data),
+                   log_path=str(logs), run_id="semi_videos", log_every_n_epochs=1)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with _RunRecorder() as rec:
+            semi = Trainer(cfg, device=dev)
+            t = time.perf_counter()
+            semi.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = launch_counts()
+        steps = len(rec.steps)
+        excluded = excluded_frames_from_df(semi.train_df, list(POOL_TRAIN_VIDEOS))
+        want_pool = sum(n - len([f for f in excluded.get(v, ()) if f < n])
+                        for v, n in zip(POOL_TRAIN_VIDEOS, VIDEO_FRAMES))
+        pool = semi.unlabeled_set
+        n_valid_full = VALID_FRAMES // semi.valid_batch_size
+        print(f"semi recipe, pool from {len(table_videos)} training videos in the port's "
+              f"AVI ({[str(p) for p in table_videos]}): pool {len(pool)} frames (expected "
+              f"{want_pool}; labelled frames left out {dict(excluded)}), {steps} steps, "
+              f"{wall!r} s wall, peak {torch.cuda.max_memory_allocated()} bytes", flush=True)
+        if not (isinstance(pool.base, VideoDataset) and len(pool) == want_pool > 0):
+            raise AssertionError(f"the video pool holds {len(pool)} frames, not {want_pool}")
+        _expect_launches(launches, {"bucket_hist": 2 * steps, "bucket_dlogits": 4 * steps,
+                                    "fu_hist": n_valid_full}, "semi with the video pool")
+        semi.close()
+        out["pool"] = {"frames": len(pool), "steps": steps, "launches": launches}
+        lap("d")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3804,6 +4302,7 @@ def main() -> int:
         zoo = phase(22, phase22_contrastive_and_zoo, dev, data)
         semi = phase(23, phase23_semi, dev, data)
         graphs = phase(24, phase24_remaining_graphs, dev, data)
+        extras = phase(25, phase25_served_extras, dev, data)
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -3819,6 +4318,9 @@ def main() -> int:
                   for name, g in graphs["graphs"].items()}
         counts["PointRend (CLI)"] = graphs["pointrend"]["launches"][key]
         rec["phase24_launches"] = {k: v for k, v in counts.items() if v}
+    # phase 25: the semi recipe fed by the training videos' pool
+    for rec, key in ((b1, "fu_hist"), (b3, "bucket_hist"), (b4f, "bucket_dlogits")):
+        rec["video_pool_launches"] = extras["pool"]["launches"][key]
 
     print(f"phases' wall seconds: {json.dumps(wall)}; total {sum(wall.values())!r}")
     print("kernels B1 fu_hist, B2 fu_grad, B3 bucket_hist, B4 bucket_grad, "
@@ -3844,6 +4346,11 @@ def main() -> int:
           f"{graphs['pointrend']['launches']['bucket_dlogits']}, FCN and UNet; B1/B2: "
           "OCRNet-R18/R34/HRNet-W18 and UPerNet on Inception-v3, ResNeXt-50 and "
           "WideResNet-50; 'phase24_launches') "
+          "over the semi recipe whose pool is the training videos (phase 25: "
+          f"B1/B3/B4f {extras['pool']['launches']['fu_hist']}/"
+          f"{extras['pool']['launches']['bucket_hist']}/"
+          f"{extras['pool']['launches']['bucket_dlogits']}, 'video_pool_launches'; 0 on "
+          "TTA, video inference and the served export) "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

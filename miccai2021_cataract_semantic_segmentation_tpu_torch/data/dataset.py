@@ -8,17 +8,28 @@ index -> (img uint8 HWC RGB, lbl uint8 HW in *network* label space, meta);
 the canonical -> task remap is a numpy LUT, so the card only ever sees
 dense ids. `DECODED` counts the batches each decoder assembled
 (`pipeline.assemble_batch` adds to it), so that a run can say which path
-it took. `VideoDataset`, `SubmissionDataset` and `ColorizationDataset`
-come with video inference (ROADMAP Queue A item 13).
+it took.
+
+`VideoDataset` streams frames of a list of videos by global frame index
+(global index -> (frame u8 RGB, frame index, video index)), resized to
+(height, width) by the port's emulation of cv2.resize; `ColorizationDataset`
+reads (rgb, grey) sequences of consecutive frames; `SubmissionDataset`
+reads a directory of images for a submission. The videos are read by
+data/video_io.py (the port's own AVI, or cv2 where it imports); each video
+has one reader, opened at its first read, behind the video's own lock.
 """
 from __future__ import annotations
 
 import pathlib
+import threading
 
 import numpy as np
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
-from miccai2021_cataract_semantic_segmentation_tpu_torch.data import native_io, png
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data import native_io, png, video_io
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import resize
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.video_io import (  # noqa: F401
+    probed_frame_count)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.remap import remap_mask_np
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -110,3 +121,137 @@ class ArrayDataset:
 
     def __getitem__(self, idx: int):
         return self.images[idx], self.labels[idx], {"index": idx, "vid_num": -1}
+
+
+def _read_image(path: pathlib.Path) -> np.ndarray:
+    """RGB uint8 of an image file: a PNG by the port's decoder, another
+    format through cv2 where it imports."""
+    with open(path, "rb") as f:
+        is_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    if is_png or video_io.cv2 is None:
+        return png.read_png(path, 3)
+    img = video_io.cv2.imread(str(path))
+    if img is None:
+        raise FileNotFoundError(path)
+    return np.ascontiguousarray(img[..., ::-1])
+
+
+class SubmissionDataset:
+    """Inference-only dataset over a directory of images: (img, zero label,
+    meta with the image's name), the images in name order and resized to
+    (height, width) (the reference's DatasetForSubmission)."""
+
+    def __init__(self, image_dir: str, height: int = 540, width: int = 960):
+        self.paths = sorted(pathlib.Path(image_dir).iterdir())
+        self.height, self.width = height, width
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, idx: int):
+        img = _read_image(self.paths[idx])
+        if img.shape[:2] != (self.height, self.width):
+            img = resize(img, (self.width, self.height))
+        lbl = np.zeros(img.shape[:2], np.uint8)
+        return img, lbl, {"index": idx, "name": self.paths[idx].name}
+
+
+class _Videos:
+    """One reader a video, opened at its first use under the video's lock.
+    With `frame_counts` known a reader opens without probing its count;
+    `probe` counts every video once and keeps the readers it opened."""
+
+    def __init__(self, video_paths, frame_counts=None):
+        self.video_paths = [str(v) for v in video_paths]
+        self.frame_counts = None if frame_counts is None else [int(c) for c in frame_counts]
+        self._readers: dict[int, object] = {}
+        self._locks = [threading.Lock() for _ in self.video_paths]
+
+    def reader(self, vid: int):
+        with self._locks[vid]:
+            r = self._readers.get(vid)
+            if r is None:
+                r = self._readers[vid] = video_io.open_reader(
+                    self.video_paths[vid],
+                    None if self.frame_counts is None else self.frame_counts[vid])
+        return r
+
+    def read(self, vid: int, frame_idx: int) -> np.ndarray:
+        """Frame `frame_idx` of video `vid`, RGB; the cv2 reader's seek and
+        read hold its own lock."""
+        return self.reader(vid).read(frame_idx)
+
+    def probe(self) -> list[int]:
+        if self.frame_counts is None:
+            self.frame_counts = [int(self.reader(v).frame_count)
+                                 for v in range(len(self.video_paths))]
+        return self.frame_counts
+
+
+class VideoDataset:
+    """Frames of a list of videos by global frame index (the reference's
+    Dataset_from_video): index -> (frame u8 RGB resized to (height, width),
+    frame index, video index). `frame_counts` skips each video's open and
+    probe where the caller knows the decodable counts (readers on several
+    threads sharing one outer dataset's probe, train/video.py)."""
+
+    def __init__(self, video_paths: list[str], height: int = 540,
+                 width: int = 960, frame_counts: list[int] | None = None):
+        self._videos = _Videos(video_paths, frame_counts)
+        self.video_paths = self._videos.video_paths
+        self.height, self.width = height, width
+        self.frame_counts = self._videos.probe()
+        self.offsets = np.cumsum([0] + self.frame_counts)
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def locate(self, idx: int) -> tuple[int, int]:
+        vid = int(np.searchsorted(self.offsets, idx, side="right") - 1)
+        return vid, int(idx - self.offsets[vid])
+
+    def __getitem__(self, idx: int):
+        vid, frame_idx = self.locate(idx)
+        frame = self._videos.read(vid, frame_idx)
+        if frame.shape[:2] != (self.height, self.width):
+            frame = resize(frame, (self.width, self.height))
+        return frame, frame_idx, vid
+
+
+class ColorizationDataset:
+    """Sequences of consecutive frames for the self-supervised
+    colourisation side project (the reference's colorization_dataset.py):
+    index -> (rgb_seq, grey_seq), two (T, H, W, 3) uint8 arrays of
+    T = `sequence_length` frames; the grey is the ITU-R 601 product in
+    float32, rounded, in three equal channels. Index i is the i-th of every
+    video's n - T + 1 starts, in video order."""
+
+    def __init__(self, video_paths: list[str], sequence_length: int = 1,
+                 resize: tuple[int, int] | None = None):
+        self._videos = _Videos(video_paths)
+        self.video_paths = self._videos.video_paths
+        self.sequence_length = int(sequence_length)
+        self.resize = None if resize is None else tuple(resize)
+        counts = self._videos.probe()
+        self.n_starts = [max(0, c - self.sequence_length + 1) for c in counts]
+        self.offsets = np.cumsum([0] + self.n_starts)
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def locate(self, idx: int) -> tuple[int, int]:
+        vid = int(np.searchsorted(self.offsets, idx, side="right") - 1)
+        return vid, int(idx - self.offsets[vid])
+
+    def __getitem__(self, idx: int):
+        vid, start = self.locate(idx)
+        weights = np.array([0.299, 0.587, 0.114], np.float32)
+        rgb, grey = [], []
+        for t in range(self.sequence_length):
+            frame = self._videos.read(vid, start + t)
+            if self.resize is not None and frame.shape[:2] != self.resize:
+                frame = resize(frame, self.resize[::-1])
+            g = np.round(frame.astype(np.float32) @ weights).astype(np.uint8)
+            rgb.append(frame)
+            grey.append(np.repeat(g[..., None], 3, axis=-1))
+        return np.stack(rgb), np.stack(grey)

@@ -6,15 +6,17 @@ pandas). `BalancedConcatDataset` zips a labelled and an unlabelled dataset
 member); `SemiSupervisedView` is the Trainer's index-union view of the
 labelled set and the unlabelled pool; `video_files_from_split` maps split
 video ids to the CaDIS mp4 layout; `excluded_frames_from_df` lists each
-video's labelled frames, which the unlabelled pool leaves out. The pool
-of the training split's surgery videos (`unlabeled_from_videos`) needs an
-mp4 decoder the port does not have yet (ROADMAP Queue A item 13); a
-caller passes its own pool to the Trainer instead.
+video's labelled frames, which the unlabelled pool leaves out;
+`unlabeled_from_videos` is the pool of the training split's surgery
+videos without those frames, read by data/dataset.py:VideoDataset (each
+file's container is sniffed from its bytes, so the port's own AVI under
+an .mp4 name serves where cv2 is absent).
 """
 from __future__ import annotations
 
 import pathlib
 import re
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -126,14 +128,35 @@ class _IndexSubset:
 
 def unlabeled_from_videos(data_path, train_df: FrameTable,
                           height: int = 540, width: int = 960):
-    """The unlabelled pool of the training split's surgery mp4s under
-    `data_path` (semi_utis.py:26-46): not ported, as the port decodes no
-    video yet."""
-    raise NotImplementedError(
-        "the unlabelled pool from the training split's videos "
-        "(unlabeled_from_videos) is not ported yet (ROADMAP Queue A item 13: "
-        "video decode); pass the Trainer a 5-element `datasets` whose last "
-        "element is the unlabelled pool")
+    """The unlabelled pool of the training split's surgery videos under
+    `data_path` (semi_utis.py:26-46), without the frames that carry ground
+    truth in `train_df` (excluded_frames_from_df, semi_utis.py:49-69)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import (
+        VideoDataset)
+    ids = sorted(int(v) for v in np.unique(np.asarray(train_df["vid_num"])))
+    root = pathlib.Path(data_path or ".")
+    files = [root / f for f in video_files_from_split(ids)]
+    found = [f for f in files if f.is_file()]
+    if not found:
+        raise FileNotFoundError(
+            f"semi-supervised mode: no training-split videos under {root} "
+            f"(looked for {[str(f) for f in files[:3]]}...)")
+    if len(found) < len(files):
+        missing = [f.name for f in files if not f.is_file()]
+        warnings.warn(
+            f"semi-supervised mode: {len(missing)} of {len(files)} training-"
+            f"split videos missing under {root} ({missing[:5]}...) — the "
+            "unlabeled pool covers the found videos only", stacklevel=2)
+    vds = VideoDataset([str(f) for f in found], height, width)
+    excluded = excluded_frames_from_df(df=train_df, train_videos=ids)
+    keep = []
+    for v, path in enumerate(found):
+        m = re.search(r"train(\d+)\.mp4$", str(path))
+        vid_num = int(m.group(1)) if m else -1
+        drop = set(excluded.get(vid_num, ()))
+        base = int(vds.offsets[v])
+        keep.extend(base + f for f in range(vds.frame_counts[v]) if f not in drop)
+    return _IndexSubset(vds, keep)
 
 
 def video_files_from_split(ids, debug: bool = False) -> list[pathlib.Path]:

@@ -8,9 +8,10 @@ The command line always runs on the card: `-d N` selects cuda:N (cuda
 without it). `main(argv, device=...)` takes another device for callers
 such as the tests. Modes (config['mode']): training (`Trainer.train`,
 resumed from the `last` checkpoint of the run that `load_checkpoint`
-names, where the config names one) and inference (the best checkpoint of
-that run, then `Trainer.infer`). The video modes are not ported yet and
-raise with their ROADMAP Queue A item (13).
+names, where the config names one), inference (the best checkpoint of
+that run, then `Trainer.infer`, with TTA where the config sets `tta`) and
+video_inference / demo_video_inference (the best checkpoint, then
+train/video.py:demo_infer over the config's `video_ids`).
 """
 from __future__ import annotations
 
@@ -46,16 +47,18 @@ def main(argv=None, device=None) -> dict:
     if device is None:
         device = f"cuda:{args.device}" if args.device >= 0 else "cuda"
     mode = config.get("mode", "training")
-    if mode in ("video_inference", "demo_video_inference"):
-        raise NotImplementedError(f"mode '{mode}' is not ported yet (ROADMAP "
-                                  "Queue A item 13)")
-    if mode not in ("training", "inference"):
+    video = mode in ("video_inference", "demo_video_inference")
+    if mode not in ("training", "inference") and not video:
         raise ValueError(f"Unknown mode '{mode}'")
     trainer = Trainer(config, device=device)
     try:
         if config.get("load_checkpoint"):
             trainer.load_checkpoint("last" if mode == "training" else "best",
                                     run_id=config["load_checkpoint"])
+        if video:
+            from miccai2021_cataract_semantic_segmentation_tpu_torch.train.video import (
+                demo_infer)
+            return demo_infer(trainer)
         return trainer.train() if mode == "training" else trainer.infer()
     finally:
         trainer.close()

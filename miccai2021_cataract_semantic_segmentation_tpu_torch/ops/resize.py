@@ -42,6 +42,16 @@ def _interp_tensor(n_in: int, n_out: int, align_corners: bool,
                                dtype=dtype, device=device)
 
 
+def _interp(n_in: int, n_out: int, align_corners: bool, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """The cached matrix, or under a trace (torch.export, torch.compile),
+    whose tensors are fake, a new one that the cache does not keep."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return torch.as_tensor(interp_matrix(n_in, n_out, align_corners),
+                               dtype=dtype, device=device)
+    return _interp_tensor(n_in, n_out, align_corners, dtype, device)
+
+
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
                     align_corners: bool = True) -> torch.Tensor:
     """Bilinear-resize NCHW `x` to spatial `size` = (H, W).
@@ -54,8 +64,8 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
     if (h, w) == (out_h, out_w):
         return x
     acc = torch.promote_types(x.dtype, torch.float32)
-    mh = _interp_tensor(h, out_h, align_corners, acc, x.device)
-    mw = _interp_tensor(w, out_w, align_corners, acc, x.device)
+    mh = _interp(h, out_h, align_corners, acc, x.device)
+    mw = _interp(w, out_w, align_corners, acc, x.device)
     with torch.autocast(x.device.type, enabled=False):
         y = torch.matmul(mh, x.to(acc))              # (N, C, out_h, w)
         y = torch.matmul(y, mw.t())                  # (N, C, out_h, out_w)

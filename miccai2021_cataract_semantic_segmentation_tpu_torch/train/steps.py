@@ -35,6 +35,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import confusion_matrix
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import (
     clipped_argmax, downsample_labels)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
     TrainState, global_norm)
 
@@ -116,6 +117,51 @@ def make_eval_step(spec: EvalSpec | None, num_classes: int,
                                  _to_device(labels_u8, dev))
         logits = _forward(model, x, precision)["logits"]
         return logits, lbl, confusion_matrix(logits, lbl, num_classes)
+
+    return step
+
+
+TTA_SCALES = (0.75, 1.0, 1.5, 1.75, 2.0)     # the reference's ttach recipe
+
+
+def tta_merged_probs(forward, x: torch.Tensor, scales) -> torch.Tensor:
+    """Test-time augmentation as the reference's ttach Compose(HFlip,
+    Scale(scales)) (BaseManager.py:652-660): for each scale s the NCHW
+    input resized to (round(h·s), round(w·s)), unflipped and flipped along
+    the width; `forward(xi) -> logits` at that size, flipped back, resized
+    to (h, w) (align_corners=False both ways) and softmaxed in at least
+    float32; the mean over the 2·len(scales) probabilities."""
+    h, w = x.shape[2:]
+    probs = None
+    for s in scales:
+        xs = resize_bilinear(x, (int(round(h * s)), int(round(w * s))),
+                             align_corners=False)
+        for flip in (False, True):
+            lg = forward(xs.flip(-1) if flip else xs)
+            if flip:
+                lg = lg.flip(-1)
+            lg = lg.to(torch.promote_types(lg.dtype, torch.float32))
+            p = torch.softmax(resize_bilinear(lg, (h, w), align_corners=False), dim=1)
+            probs = p if probs is None else probs + p
+    return probs / (2 * len(scales))
+
+
+def make_tta_step(spec: EvalSpec | None, num_classes: int, scales=TTA_SCALES,
+                  device: str | torch.device = "cuda", precision: str = "bf16"):
+    """step(model, images_u8, labels_u8) -> (probs, labels, cm): the eval
+    step with `tta_merged_probs` in place of the logits; the matrix counts
+    the merged probabilities' argmax."""
+    dev = resolve_device(device)
+    scales = tuple(float(s) for s in scales)
+
+    @torch.inference_mode()
+    def step(model, images_u8, labels_u8):
+        model.eval()
+        x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
+                                 _to_device(labels_u8, dev))
+        probs = tta_merged_probs(lambda xi: _forward(model, xi, precision)["logits"],
+                                 x, scales)
+        return probs, lbl, confusion_matrix(probs, lbl, num_classes)
 
     return step
 

@@ -39,8 +39,12 @@ is restored from its run's `chkpt_best.pt` (models/ensemble.py), the eval
 preprocessing pads without normalising (the members normalise where they
 were trained so), and `infer()` counts the merged probabilities' argmax.
 
-Not ported yet, and raising with their ROADMAP Queue A item: TTA and the
-unlabelled pool from the training split's videos (item 13).
+`infer(tta=True)` (or the config's `tta`) runs the reference's flip x
+multi-scale test-time augmentation (`tta_scales`, default 0.75, 1, 1.5,
+1.75, 2) in place of the eval step: the matrix and the triptychs come from
+the merged probabilities. In semi mode without a given pool, the pool is
+the training split's surgery videos under `data_path`
+(data/semi.py:unlabeled_from_videos).
 """
 from __future__ import annotations
 
@@ -80,14 +84,10 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.train.loggers import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
-    EvalSpec, make_eval_loss_step, make_eval_step, make_train_step)
+    TTA_SCALES, EvalSpec, make_eval_loss_step, make_eval_step, make_train_step,
+    make_tta_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
     has_point_head, train_metrics_source)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
-                               f"item {item})")
 
 
 def _is_resnet_tensor(key: str) -> bool:
@@ -249,6 +249,7 @@ class Trainer:
         spec = EvalSpec(pad=self.pipeline.device.pad,
                         normalise=self.pipeline.device.normalise) \
             if self.pipeline.valid_pad else None
+        self.eval_spec = spec
         self.eval_step = make_eval_step(spec, self.num_classes, self.device,
                                         self.precision)
         # validation batches are fully labelled: in semi mode their loss is
@@ -279,6 +280,7 @@ class Trainer:
         self.model = build_ensemble(graph, self.task, self.config.get("log_path", "logs"),
                                     self.device)
         spec = EvalSpec(pad=True) if self.pipeline.valid_pad else None
+        self.eval_spec = spec
         self.eval_step = make_eval_step(spec, self.num_classes, self.device,
                                         self.precision)
         self.state = None
@@ -606,10 +608,11 @@ class Trainer:
         """Test/validation inference over the valid set: one warm-up batch,
         then the timed loop; `frames_per_sec` counts the real records over
         the host time to the last batch's results (after a device
-        synchronise), the warm-up excluded."""
-        tta = self.config.get("tta", False) if tta is None else tta
-        if tta:
-            raise _not_ported("test-time augmentation", "13")
+        synchronise), the warm-up excluded. With `tta` the step is the
+        flip x multi-scale TTA step (`_make_tta_step`), whose merged
+        probabilities give the matrix and the triptychs."""
+        tta = bool(self.config.get("tta", False) if tta is None else tta)
+        step = self._make_tta_step() if tta else self.eval_step
         n = len(self.valid_set)
         bs = self.valid_batch_size
         batches, n_pad = eval_batches(n, bs)
@@ -617,7 +620,7 @@ class Trainer:
         log_at = set(np.round(np.linspace(0, len(batches) - 1,
                                           max_imgs)).astype(int).tolist())
         wi, wl, _ = assemble_batch(self.valid_set, batches[0])
-        w_logits, _, _ = self.eval_step(self.model, wi, wl)
+        w_logits, _, _ = step(self.model, wi, wl)
         w_logits[0].argmax(dim=0).cpu()
         self._synchronize()
         decoded0 = dict(DECODED)
@@ -627,7 +630,7 @@ class Trainer:
                 self.valid_set, batches, self.device, prefetch=2)):
             if n_pad and bi == len(batches) - 1:
                 labels[bs - n_pad:] = 255      # mask the repeated records
-            logits, lbl, cm = self.eval_step(self.model, images, labels)
+            logits, lbl, cm = step(self.model, images, labels)
             cm_total += cm.cpu().numpy().astype(np.int64)
             if bi in log_at:
                 self._log_valid_image(images[0], lbl[0], logits[0],
@@ -639,11 +642,23 @@ class Trainer:
                    "frames_per_sec": n / dt,
                    "confusion_matrix": cm_total.tolist(),
                    "decoded": {k: DECODED[k] - decoded0[k] for k in DECODED},
-                   "device": str(self.device), "valid_batch_size": bs}
+                   "device": str(self.device), "valid_batch_size": bs,
+                   "tta": tta}
         print(f"[{self.run_id}] infer: " + ", ".join(
             f"{k} {v}" for k, v in results.items() if k != "confusion_matrix"))
         ckpt.write_info_json(self.run_dir, self.config, results)
         return results
+
+    def _make_tta_step(self):
+        """The reference's ttach Compose(HFlip, Scale(tta_scales)), mean
+        merge (BaseManager.py:652-660), on the eval step's preprocessing;
+        a single-model recipe."""
+        if self.ensemble:
+            raise ValueError("TTA is a single-model recipe (BaseManager.infer); "
+                             "the Ensemble merges its members instead")
+        return make_tta_step(self.eval_spec, self.num_classes,
+                             self.config.get("tta_scales", TTA_SCALES),
+                             self.device, self.precision)
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":

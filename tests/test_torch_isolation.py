@@ -5,7 +5,9 @@ EncDec-UPerNet's validation on the LossWrapper, the prototype fused
 upsample's checks and the CLI's inference and training from a PNG tree
 on disk, and in a second process the affine and crop host transforms in
 a batch, OCRNet's projector on a LossWrapper with both dense-contrastive
-terms and a semi-supervised train step, run with them blocked), nor pandas, cv2, PIL, matplotlib or
+terms and a semi-supervised train step, and in a third the video path on
+the port's own AVI, both video modes through the CLI and the serving
+export, run with them blocked), nor pandas, cv2, PIL, matplotlib or
 tensorboard, which the card's machine lacks (blocked in the same run; a
 source may import them only inside a `try` that catches ImportError), its
 entry points refuse to run on a missing card unless asked for the CPU,
@@ -243,6 +245,86 @@ def test_training_vocabulary_runs_with_jax_blocked():
     assert all(np.isfinite(v) for v in res["dc_terms"].values())
     assert res["dc_terms"]["DenseContrastiveLoss"] > 0
     assert all(np.isfinite(v) for v in res["semi"])
+    assert res["launches"] == dict.fromkeys(KERNELS, 0)
+    assert res["leaked"] == []
+
+
+# the blocking prelude, then the video path (the port's own AVI written
+# and read, a video pool, both video modes through the CLI) and the
+# serving export, which must work without cv2
+_VIDEO_AND_EXPORT = _SUBPROCESS[:_SUBPROCESS.index("import miccai2021")] + """
+import pathlib, tempfile
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data import video_io
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataframe import load_frame_table
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataset import VideoDataset
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data.semi import unlabeled_from_videos
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
+from miccai2021_cataract_semantic_segmentation_tpu_torch.main import main
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+    canonical_from_network, write_tree)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train import export
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import EvalSpec
+tmp_dir = tempfile.TemporaryDirectory()
+tmp = pathlib.Path(tmp_dir.name)
+rng = np.random.default_rng(0)
+frames = rng.integers(0, 256, (5, 60, 64, 3), dtype=np.uint8)
+(tmp / "cadis" / "workflow" / "test").mkdir(parents=True)
+(tmp / "pool" / "train_1").mkdir(parents=True)
+for path in (tmp / "cadis" / "workflow" / "test" / "dev01.mp4",
+             tmp / "pool" / "train_1" / "train01.mp4"):
+    w = video_io.open_writer(path, 25, (64, 60))
+    for f in frames:
+        w.write(f)
+    w.release()
+ds = VideoDataset([str(tmp / "pool" / "train_1" / "train01.mp4")], 60, 64)
+round_trip = all(np.array_equal(ds[i][0], frames[i]) for i in range(5))
+table = load_frame_table()
+pool = unlabeled_from_videos(tmp / "pool", table.take(np.flatnonzero(
+    np.asarray(table["vid_num"]) == 1)), 60, 64)
+graph = {"model": "FCN", "width": 0.125}
+model = build_model(graph, 2, device="cpu")
+labels = rng.integers(0, 18, (3, 60, 64)).astype(np.uint8)
+write_tree(tmp / "cadis" / "data", frames[:3], canonical_from_network(labels, 2), [2, 12, 22])
+save_checkpoint(tmp / "logs" / "pub" / "chkpts", "best", model, 0, 0.0, 0.0)
+outs = {}
+for mode in ("video_inference", "demo_video_inference"):
+    cfg = dict(json.load(open("configs/OCRNet_pretrained_t2.json")), graph=graph,
+               precision="f32", mode=mode, run_id=mode, log_path=str(tmp / "logs"),
+               load_checkpoint="pub", video_ids=["dev01"], video_height=60, video_width=64)
+    (tmp / "cfg.json").write_text(json.dumps(cfg))
+    res = main(["-c", str(tmp / "cfg.json"), "-dp", str(tmp / "cadis" / "data")],
+               device="cpu")
+    r = video_io.open_reader(res["outputs"][0])
+    outs[mode] = [res["frames"], res["codec"], r.frame_count, list(r.shape)]
+serve = export.make_serving_fn(model, EvalSpec(pad=True))
+path = export.save_serving(export.export_fn(serve, (60, 64)), tmp / "serving")
+with torch.no_grad():
+    got = export.load_serving(path)(torch.as_tensor(frames[:2]))
+    want = serve(torch.as_tensor(frames[:2]))
+tmp_dir.cleanup()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT
+                and sys.modules[m] is not None)
+print(json.dumps({"round_trip": round_trip, "pool": len(pool), "outs": outs,
+                  "writers": video_io.WRITERS, "readers": video_io.READERS,
+                  "served": bool(torch.equal(got["pred"], want["pred"])
+                                 and torch.equal(got["confidence"], want["confidence"])),
+                  "launches": {k: v.launches for k, v in KERNELS.items()},
+                  "leaked": leaked}))
+"""
+
+
+def test_video_and_export_run_with_jax_and_cv2_blocked():
+    out = subprocess.run([sys.executable, "-c", _VIDEO_AND_EXPORT % (BLOCKED, CARD_ABSENT)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["round_trip"] and res["pool"] == 5          # video 1 labels frames 90+
+    assert res["outs"] == {"video_inference": [5, ["avi_raw"], 5, [60, 64]],
+                           "demo_video_inference": [5, ["avi_raw"], 5, [60, 128]]}
+    assert res["writers"] == {"xvid": 0, "avi_raw": 4} and res["readers"]["cv2"] == 0
+    assert res["served"]
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 

@@ -147,8 +147,13 @@ def test_video_files_and_excluded_frames_equal_jax():
 
 
 def test_the_video_pool_raises_naming_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """Without the training split's videos the pool raises naming what it
+    looked for, as the JAX package's does (the pool from videos is held
+    against JAX's in tests/test_torch_video.py)."""
+    with pytest.raises(FileNotFoundError, match=r"train_1/train01\.mp4"):
         semi.unlabeled_from_videos(tmp_path, load_frame_table())
+    with pytest.raises(FileNotFoundError, match=r"train_1/train01\.mp4"):
+        jax_semi.unlabeled_from_videos(tmp_path, jax_df.load_frame_table())
 
 
 # ---------------------------------------------------- epoch index streams
@@ -214,7 +219,7 @@ def test_semi_trainer_refuses_what_the_jax_trainer_refuses(tmp_path, monkeypatch
     with pytest.raises(ValueError, match="even"):
         Trainer(_semi_config(tmp_path, "odd", batch_size=3),
                 (arrays, arrays, df, df, images), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(FileNotFoundError, match="no training-split videos"):
         Trainer(_semi_config(tmp_path, "videos"), (arrays, arrays, df, df), device="cpu")
 
 

@@ -29,6 +29,7 @@ from miccai2021_cataract_semantic_segmentation_tpu.train import config as jax_co
 from miccai2021_cataract_semantic_segmentation_tpu.train import state as jax_state
 from miccai2021_cataract_semantic_segmentation_tpu.train import trainer as jax_trainer
 
+from miccai2021_cataract_semantic_segmentation_tpu_torch.data import video_io
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses.functional import cross_entropy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.main import build_argparser, main
@@ -323,25 +324,39 @@ def test_cli_serves_a_published_run(served):
     assert info["metrics"]["confusion_matrix"] == port_infer["confusion_matrix"]
     for k in METRICS:
         assert info["metrics"][k] == res[k] == port_infer[k]
-    (root / "video.json").write_text(json.dumps(dict(cfg, mode="video_inference")))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["-c", str(root / "video.json")], device="cpu")
+    # the video mode: workflow/test/<id>.mp4 beside the dataset root, the
+    # best checkpoint of `load_checkpoint`, one colour-mapped video out
+    frames = np.random.default_rng(2).integers(0, 256, (3, H, W, 3), dtype=np.uint8)
+    (root / "workflow" / "test").mkdir(parents=True)
+    writer = video_io.AviWriter(root / "workflow" / "test" / "dev01.mp4", 25, (W, H))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    (root / "video.json").write_text(json.dumps(dict(
+        cfg, mode="video_inference", run_id="video", video_ids=["dev01"],
+        video_height=H, video_width=W)))
+    res = main(["-c", str(root / "video.json"), "-dp", str(root / "data")], device="cpu")
+    assert res["frames"] == 3 and not res["side_by_side"]
+    assert res["outputs"] == [str(root / "logs" / "video" / "dev01_OCRNet.avi")]
+    assert video_io.open_reader(res["outputs"][0]).frame_count == 3
 
 
 def test_trainer_refuses_what_is_not_ported(served):
+    """TTA and the semi mode's pool of the training videos are ported
+    (tests/test_torch_tta.py, test_torch_video.py): TTA at the identity
+    scale alone (flip and no flip) counts the same pixels as `infer`; the
+    semi mode refuses a tree without the training split's videos."""
     root, config, *_, port_infer, _ = served
-    for change, item in (({"tta": True}, "item 13"),):
-        t = Trainer(dict(config, run_id="tta", **change), device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            t.infer()
-        t.close()
-    # the semi-supervised mode's pool of the training videos waits for the
-    # video decode; the semi mode with a given pool, MoCo and the host
-    # transforms are ported (tests/test_torch_semi.py, test_torch_host_transforms.py)
-    for change, item in (({"loss": {"name": "SemiSupervisedLoss"}, "mode": "training",
-                           "data": dict(config["data"], batch_size=2)}, "item 13"),):
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(dict(config, run_id="x", **change), device="cpu")
+    t = Trainer(dict(config, run_id="tta", tta=True, tta_scales=[1.0]), device="cpu")
+    res = t.infer()
+    t.close()
+    assert res["tta"] is True
+    assert np.asarray(res["confusion_matrix"]).sum() == \
+        np.asarray(port_infer["confusion_matrix"]).sum()
+    with pytest.raises(FileNotFoundError, match="no training-split videos"):
+        Trainer(dict(config, run_id="x", loss={"name": "SemiSupervisedLoss"},
+                     mode="training", data=dict(config["data"], batch_size=2)),
+                device="cpu")
     # the Ensemble (item 12) is ported: one member, the served run's best
     # checkpoint, counts what the served Trainer's infer() counted
     ens = Trainer(dict(config, run_id="ensemble", graph={
