@@ -248,7 +248,23 @@ Phases (any failure raises and the run exits non-zero):
      port's AVI under their release names (train_1/train01.mp4,
      train_1/train03.mp4), `Trainer.train` for one epoch, the pool's length
      (the labelled frames left out), and one B3 a half and one B4f a scale
-     a half each step, one B1 a validation batch.
+     a half each step, one B1 a validation batch;
+ 26. training and serving over several ranks: (a) the flagship through
+     the CLI under torchrun as one NCCL rank, its index batches, step
+     losses, final weights and validation metrics against the plain run's
+     (bit-equal), and the flagship step timed with no group and with the
+     rank's data group in turns; (b) two gloo ranks on cuda:0 (NCCL
+     refuses two ranks on one card): gloo's all-reduces of CUDA tensors
+     (the functional one with its gradient), then the flagship step at
+     544x960 on a global batch of 8 in bf16, one B1 and one B2 a rank, its
+     summed confusion matrix against the same step in one process on the
+     same 8 frames and draws (the label counts equal, at most
+     PAR_CM_SHARE of the pixels counted in another class) and each rank's
+     own loss against the loss of its half of the one-process logits
+     (within PAR_LOSS_TOL), then the 2-rank float64 step of phase 8's input
+     on the card against the same step on two CPU ranks (F64_TOL); (c) the
+     serving export over [cuda:0, cuda:0] at batch 8 bit-equal, shard by
+     shard, to the one-device artifact; (d) the times of (a) and (b).
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -4220,6 +4236,448 @@ def phase25_served_extras(dev, data) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: training and serving over several ranks
+# ---------------------------------------------------------------------------
+
+# the flagship's global batch at full width on two gloo ranks on one card
+RANKS26, BATCH26 = 2, 8
+# phase 8's float64 input, a global batch of 4 (2 a rank)
+SMALL26 = dict(n=4, h=64, w=96, seed=1)
+# the bf16 2-rank step against the one-process step on the same frames and
+# draws: under global BatchNorm both compute the same function and differ
+# only in the order of their sums (the BatchNorm statistics' over ranks,
+# cuDNN's at batch 4 against batch 8), which bf16's 8-bit mantissa carries
+# into the logits, and a random model's logits lie close, so argmaxes flip.
+# An H100 read 0.0205 of the stride-8 matrix's pixels in another class and
+# rank losses 2.9e-5 from their halves' (PERF.md §6); the gates sit about
+# 3x and 17x above that, and below what BatchNorm over the local rows or
+# draws not sliced move (PERF.md §6). The label counts (the matrix's
+# columns) must be equal: they depend only on the rows and the draws
+PAR_CM_SHARE = 0.06
+PAR_LOSS_TOL = 5e-4
+
+
+class RecordingLoss:
+    """`loss_fn` that keeps its last call's total (a rank's own loss,
+    before the step averages it over the ranks) and, with `keep`, its
+    outputs, labels and keywords."""
+
+    def __init__(self, loss_fn, keep: bool = False):
+        self.loss_fn, self.keep = loss_fn, keep
+        self.full_res = tuple(getattr(loss_fn, "full_res", ()))
+
+    def __call__(self, outputs, labels, **kw):
+        total, terms = self.loss_fn(outputs, labels, **kw)
+        self.total = total.detach().clone()   # the step averages `total` in place
+        if self.keep:
+            self.outputs = {k: v.detach() for k, v in outputs.items()}
+            self.labels, self.kw = labels, kw
+        return total, terms
+
+
+def flagship_step26(cfg, dev, group=None, keep: bool = False):
+    """The flagship's seed-0 model, its train state and its train step
+    (the config's recipe) on `dev` under `group`, with the loss recorded
+    (`RecordingLoss`)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+        train_metrics_source)
+
+    task = int(cfg["data"]["experiment"])
+    model = build_model(cfg["graph"], task, device=dev, seed=0)
+    state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 100))
+    loss = RecordingLoss(build_loss(cfg["loss"], task, dev), keep)
+    step = make_train_step(loss, device_spec(cfg["data"]["transforms"]), task, device=dev,
+                           precision=cfg.get("precision", "bf16"),
+                           train_metrics=train_metrics_source(cfg), group=group)
+    return state, step, loss
+
+
+def single26(cfg, dev, images, labels, ranks: int) -> dict:
+    """Phase 26(b)'s reference: the flagship's first step in one process
+    on the global batch (`flagship_step26`: the ranks' weights and draws),
+    its confusion matrix, and the loss of each rank's rows of its outputs
+    (the loss that rank computes of its own rows, `_sharded_loss`)."""
+    state, step, loss = flagship_step26(cfg, dev, keep=True)
+    m = step(state, images, labels, 0)
+    n, k = len(images), len(images) // ranks
+    halves = []
+    with torch.no_grad():
+        for r in range(ranks):
+            rows = slice(r * k, (r + 1) * k)
+            total, _ = loss.loss_fn({key: v[rows] if v.ndim and v.shape[0] == n else v
+                                     for key, v in loss.outputs.items()},
+                                    loss.labels[rows], **loss.kw)
+            halves.append(float(total))
+    return {"cm": m["confusion_matrix"].cpu(), "loss": float(m["loss"]), "halves": halves}
+
+
+def held26(card, ref) -> dict:
+    """The 2-rank bf16 step (`card`: each rank's record) against the
+    one-process step (`single26`): whether the matrix's label counts are
+    equal, the share of its pixels counted in another class, each rank's
+    loss against its half's, and the reported loss against the ranks'
+    mean."""
+    cm, want = card[0]["cm"].long(), ref["cm"].long()
+    local = [r["local_loss"] for r in card]
+    # rows are the predicted class, columns the label (ops/metrics.py)
+    return {"labels_equal": bool(torch.equal(cm.sum(0), want.sum(0))),
+            "cm_share": float((cm - want).abs().sum()) / (2 * float(want.sum())),
+            "rank_loss_diff": [abs(a - b) for a, b in zip(local, ref["halves"])],
+            "mean_loss_diff": abs(card[0]["loss"] - float(np.mean(local))),
+            "ranks_equal": all(torch.equal(r["cm"], cm) and r["loss"] == card[0]["loss"]
+                               for r in card)}
+
+
+class scalars_to_jsonl:
+    """Tensorboard made absent for the block, so that a Trainer's TBLogger
+    writes its scalars to scalars.jsonl, which the phase reads back."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("torch.utils.tensorboard")
+        sys.modules["torch.utils.tensorboard"] = None
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            del sys.modules["torch.utils.tensorboard"]
+        else:
+            sys.modules["torch.utils.tensorboard"] = self.saved
+
+
+def run_process_group(cmd, timeout: float) -> subprocess.CompletedProcess:
+    """`cmd` in a session of its own, killed whole (torchrun and its
+    workers) if it outlasts `timeout`."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        raise AssertionError(f"{cmd} outlasted {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def rank26a(payload: str) -> int:
+    """Phase 26(a)'s worker under torchrun (one rank, NCCL): the flagship
+    through the port's CLI from the payload's config, the kernels' launches
+    counted around it; then the world's backend and an NCCL all-reduce,
+    and the flagship's train step timed in turns with no group and with the
+    world's data group. Prints one line `RANK26A <json>`."""
+    import torch.distributed as dist
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import main as port_main
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel import (
+        DataGroup, close, init_from_env)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
+        train_metrics_source)
+
+    p = json.loads(pathlib.Path(payload).read_text())
+    reset_launches()
+    with scalars_to_jsonl():
+        port_main.main(["-c", p["config"], "-dp", p["data"]])
+    launches = launch_counts()
+    world = init_from_env("cuda")
+    try:
+        backend = dist.get_backend()
+        t = torch.ones(3, device=world.device)
+        dist.all_reduce(t)
+        cfg = json.loads(pathlib.Path(p["config"]).read_text())
+        task = int(cfg["data"]["experiment"])
+        model = build_model(cfg["graph"], task, device=world.device, seed=0)
+        state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 100))
+        images, labels = synthetic_set(n=BATCH26)
+        steps = {name: make_train_step(
+            build_loss(cfg["loss"], task, world.device), device_spec(cfg["data"]["transforms"]),
+            task, device=world.device, precision=cfg.get("precision", "bf16"),
+            train_metrics=train_metrics_source(cfg), group=group)
+            for name, group in (("plain", None), ("nccl", DataGroup.of(world, BATCH26)))}
+        ms = {name: [] for name in steps}
+        for name in ("plain", "nccl", "nccl", "plain"):
+            ms[name].append(cuda_ms(lambda: steps[name](state, images, labels, 0),
+                                    reps=3, warmup=1))
+    finally:
+        close(world)
+    print("RANK26A " + json.dumps({
+        "launches": launches, "backend": backend, "all_reduce": t.tolist(),
+        "world": [world.rank, world.size, str(world.device)], "ms": ms}), flush=True)
+    return 0
+
+
+def rank26b(rank: int, world: int, payload: str) -> dict:
+    """Phase 26(b)'s rank (parallel/launch.py: gloo, a FileStore), on the
+    payload's device: on the card, gloo's all-reduces of CUDA tensors
+    (the functional one with its gradient, and the in-place one) and the
+    flagship's first train step at full width on this rank's half of a
+    global batch of 8 in bf16 (`flagship_step26`), its launches counted,
+    its summed matrix, reported loss and the rank's own loss, then the
+    step's time; on both devices, the float64 step of phase 8's input over
+    the two ranks (TF32 off, pad only)."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel import (
+        DataGroup, init_from_env)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+
+    p = json.loads(pathlib.Path(payload).read_text())
+    cfg = json.loads(pathlib.Path(CONFIG).read_text())
+    task = int(cfg["data"]["experiment"])
+    dev = torch.device(p["device"])
+    w = init_from_env(dev)
+    out = {}
+    if dev.type == "cuda":
+        group = DataGroup.of(w, BATCH26)
+        x = torch.full((3,), float(rank + 1), device=dev, requires_grad=True)
+        y = group.sum_(x * 2.0)
+        y.sum().backward()
+        t = torch.full((2,), rank + 1, device=dev, dtype=torch.int64)
+        group.all_reduce_(t)
+        out["gloo_cuda"] = {"sum": y.tolist(), "grad": x.grad.tolist(), "int64": t.tolist(),
+                            "devices": [str(y.device), str(x.grad.device), str(t.device)]}
+        images, labels = synthetic_set(n=BATCH26)
+        rows = group.local_rows(BATCH26)
+        state, step, loss = flagship_step26(cfg, dev, group)
+        reset_launches()
+        m = step(state, images[rows], labels[rows], 0)
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+        out.update(loss=float(m["loss"]), local_loss=float(loss.total),
+                   cm=m["confusion_matrix"].cpu())
+        out["ms"] = cuda_ms(lambda: step(state, images[rows], labels[rows], 0),
+                            reps=3, warmup=1)
+        del state, step, loss
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = False
+    images, labels = synthetic_set(**SMALL26)
+    group = DataGroup.of(w, SMALL26["n"])
+    rows = group.local_rows(SMALL26["n"])
+    model = build_model(cfg["graph"], task, device=dev, seed=0).to(torch.float64)
+    state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 1))
+    step = make_train_step(build_loss(cfg["loss"], task, dev), device_spec(["pad"]), task,
+                           device=dev, precision="fp64", train_metrics="s8", group=group)
+    m = step(state, images[rows], labels[rows], 0)
+    out["f64"] = dict(loss=float(m["loss"]), norm=float(m["grad_norm"]),
+                      cm=m["confusion_matrix"].cpu(), grads=flat_grads(model),
+                      sd={k: v.cpu() for k, v in model.state_dict().items()})
+    return out
+
+
+def mesh_export26(dev, cfg) -> dict:
+    """Phase 26(c): the flagship's serving program (seed-0 weights, bf16)
+    exported over the mesh [cuda:0, cuda:0] at a pinned batch of 8 and
+    served, against the one-device artifact (a symbolic batch) on each
+    shard's 4 frames and on all 8; the export and serve times."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train import export
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import eval_spec
+
+    task = int(cfg["data"]["experiment"])
+    model = build_model(cfg["graph"], task, device=dev, seed=0).eval()
+    serve = export.make_serving_fn(model, eval_spec(cfg["data"]["transforms"]),
+                                   precision=cfg.get("precision", "bf16"))
+    images, _ = synthetic_set(n=BATCH26)
+    x = torch.from_numpy(images).to(dev)
+    t = time.perf_counter()
+    mesh = export.MeshServing(export.export_fn(serve, images.shape[1:3], batch=BATCH26,
+                                               mesh=[dev, dev]), [dev, dev])
+    t_mesh = time.perf_counter() - t
+    t = time.perf_counter()
+    one = export.export_fn(serve, images.shape[1:3]).module()
+    t_one = time.perf_counter() - t
+    with torch.no_grad():
+        got = mesh(x)
+        shards = [one(x[:4]), one(x[4:])]
+        whole = one(x)
+        ms = {"mesh": cuda_ms(lambda: mesh(x), reps=5, warmup=1),
+              "one": cuda_ms(lambda: one(x), reps=5, warmup=1)}
+    per_shard = {k: bool(torch.equal(got[k], torch.cat([s[k] for s in shards])))
+                 for k in ("pred", "confidence")}
+    return {"export_s": {"mesh": t_mesh, "one": t_one}, "serve_ms_b8": ms,
+            "bit_equal_per_shard": per_shard,
+            "pred_share_vs_batch8": float((got["pred"] != whole["pred"]).float().mean()),
+            "conf_diff_vs_batch8": float((got["confidence"] - whole["confidence"]).abs().max())}
+
+
+def phase26_parallel(dev, data) -> dict:
+    """Training and serving over several ranks (see the module docstring);
+    returns the 2-rank step's B1/B2 launches, summed over the ranks."""
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import main as port_main
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.launch import Ranks
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import (
+        read_checkpoint)
+
+    smi = nvidia_smi()
+    cfg = json.loads(pathlib.Path(CONFIG).read_text())
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_parallel_"))
+    payloads = {}
+    for kind in ("cuda:0", "cpu"):
+        payloads[kind] = tmp / f"ranks_{kind.replace(':', '')}.json"
+        payloads[kind].write_text(json.dumps({"device": kind}))
+    # (b)'s replay on the CPU runs beside (a) and (c), which it leaves the
+    # card to
+    cpu_ranks = Ranks("chip_smoke:rank26b", RANKS26, payloads["cpu"], threads=2)
+    try:
+
+        # (a) one rank over NCCL through torchrun against the plain run
+        logs = tmp / "logs"
+
+        def write_config(run_id):
+            c = json.loads(json.dumps(cfg))
+            c["train"]["epochs"] = 1
+            c.update(data_path=str(data), log_path=str(logs), run_id=run_id,
+                     log_every_n_epochs=1, log_every_n_steps=1)
+            path = tmp / f"{run_id}.json"
+            path.write_text(json.dumps(c))
+            return str(path)
+
+        plain_cfg, nccl_cfg = write_config("plain"), write_config("nccl")
+        reset_launches()
+        t = time.perf_counter()
+        with scalars_to_jsonl():
+            port_main.main(["-c", plain_cfg, "-dp", str(data)])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        plain_launches = launch_counts()
+        (tmp / "a.json").write_text(json.dumps({"config": nccl_cfg, "data": str(data)}))
+        t = time.perf_counter()
+        proc = run_process_group(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"), "--rank26a",
+             str(tmp / "a.json")], timeout=300)
+        nccl_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"the torchrun run exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        a = json.loads(next(ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("RANK26A "))[len("RANK26A "):])
+        runs = {name: (read_checkpoint(logs / name / "chkpts" / "chkpt_last.pt"),
+                       np.load(logs / name / "ind_dist.npz"),
+                       [json.loads(ln)["value"] for ln in
+                        (logs / name / "train" / "scalars.jsonl").read_text().splitlines()
+                        if '"metrics/loss"' in ln],
+                       json.loads((logs / name / "info.json").read_text())["metrics"])
+                for name in ("plain", "nccl")}
+        (ck_p, ind_p, loss_p, val_p), (ck_n, ind_n, loss_n, val_n) = runs["plain"], runs["nccl"]
+        same_batches = sorted(ind_p.files) == sorted(ind_n.files) and all(
+            np.array_equal(ind_p[k], ind_n[k]) for k in ind_p.files)
+        weights_equal = all(torch.equal(v, ck_n["model_state_dict"][k])
+                            for k, v in ck_p["model_state_dict"].items())
+        n_steps = len(loss_p)
+        print(f"26(a) one rank over torchrun ({a['backend']}, world {a['world']}, its "
+              f"all-reduce of ones {a['all_reduce']}): {n_steps} steps, index batches "
+              f"equal {same_batches}, step losses {loss_n} against the plain run's "
+              f"{loss_p}, final weights bit-equal {weights_equal}, validation mIoU "
+              f"{val_n['miou']!r} against {val_p['miou']!r}; launches {a['launches']} "
+              f"against the plain run's {plain_launches}; wall {nccl_s!r} s (a process "
+              f"of its own) against {plain_s!r} s in process", flush=True)
+        print(f"26(d) the flagship train step (544x960, batch 8, bf16), CUDA events, "
+              f"medians of 3 in turns plain/NCCL/NCCL/plain: plain {a['ms']['plain']} ms, "
+              f"one NCCL rank {a['ms']['nccl']} ms; card {smi}", flush=True)
+        bad = []
+        if a["backend"] != "nccl" or a["all_reduce"] != [1.0, 1.0, 1.0] or \
+                a["world"] != [0, 1, "cuda:0"]:
+            bad.append(f"(a) the world: {a['backend']}, {a['world']}, {a['all_reduce']}")
+        if not (same_batches and weights_equal and loss_n == loss_p and val_n == val_p
+                and a["launches"] == plain_launches and n_steps > 0
+                and plain_launches["fu_grad"] == n_steps):
+            bad.append("(a) the one-rank NCCL run differs from the plain run")
+
+        # (c) the export over a mesh of [cuda:0, cuda:0]
+        c = mesh_export26(dev, cfg)
+        print(f"26(c) the flagship's serving export over [cuda:0, cuda:0] at batch 8: "
+              f"{json.dumps(c)}; card {smi}", flush=True)
+        if not all(c["bit_equal_per_shard"].values()):
+            bad.append(f"(c) the mesh artifact differs from the one-device one: {c}")
+
+        # (b) two gloo ranks on cuda:0, and their float64 step replayed on the CPU
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        card = Ranks("chip_smoke:rank26b", RANKS26, payloads["cuda:0"]).results(timeout=300)
+        card_s = time.perf_counter() - t
+        cpu = cpu_ranks.results(timeout=300)
+        g = [r["gloo_cuda"] for r in card]
+        print(f"26(b) gloo with CUDA tensors: {g}", flush=True)
+        if any(r["sum"] != [6.0] * 3 or r["grad"] != [4.0] * 3 or r["int64"] != [3, 3]
+               or any(not d.startswith("cuda") for d in r["devices"]) for r in g):
+            bad.append(f"(b) gloo's all-reduce of CUDA tensors: {g}")
+        launches = [r["launches"] for r in card]
+        print(f"26(b) two ranks on cuda:0 (gloo), the flagship's first step at 544x960, "
+              f"global batch 8 (4 a rank), bf16: reported losses "
+              f"{[r['loss'] for r in card]}, the ranks' own {[r['local_loss'] for r in card]}, "
+              f"matrix counts {[int(r['cm'].sum()) for r in card]}, launches a rank in "
+              f"the step {launches}; then the step {[r['ms'] for r in card]} ms a rank "
+              f"(CUDA events, median of 3, both ranks sharing the card); the ranks' wall "
+              f"{card_s!r} s (two processes of their own); card {smi}", flush=True)
+        want = dict(dict.fromkeys(KERNELS, 0), fu_hist=1, fu_grad=1)
+        if any(n != want for n in launches) or \
+                not np.isfinite([r["local_loss"] for r in card]).all():
+            bad.append(f"(b) launches {launches} (want {want}) or losses "
+                       f"{[r['local_loss'] for r in card]}")
+        images, labels = synthetic_set(n=BATCH26)
+        ref = single26(cfg, dev, images, labels, RANKS26)
+        held = held26(card, ref)
+        print(f"26(b) the same step in one process on the same 8 frames and draws: loss "
+              f"{ref['loss']!r}, the loss of each rank's half of its outputs "
+              f"{ref['halves']}; the 2-rank step against it: {json.dumps(held)} (gates: "
+              f"label counts equal, matrix share {PAR_CM_SHARE}, a rank's loss "
+              f"{PAR_LOSS_TOL}, the reported loss the ranks' mean within 1e-6)", flush=True)
+        if not (held["labels_equal"] and held["ranks_equal"]
+                and held["cm_share"] <= PAR_CM_SHARE
+                and max(held["rank_loss_diff"]) <= PAR_LOSS_TOL
+                and held["mean_loss_diff"] <= 1e-6):
+            bad.append(f"(b) the 2-rank bf16 step against one process: {held}")
+        lr = float(cfg["train"]["learning_rate"])
+        g64, h64 = card[0]["f64"], cpu[0]["f64"]
+        stats = [k for k in h64["sd"] if k.endswith(("running_mean", "running_var"))]
+        params = [k for k in h64["sd"] if k not in stats
+                  and not k.endswith("num_batches_tracked")]
+        got = dict(loss=abs(g64["loss"] - h64["loss"]),
+                   grads=rel_l2(g64["grads"], h64["grads"]),
+                   grad_norm=abs(g64["norm"] / h64["norm"] - 1),
+                   stats=max(rel_l2(g64["sd"][k], h64["sd"][k]) for k in stats),
+                   params=max(float((g64["sd"][k] - h64["sd"][k]).abs().max())
+                              for k in params) / lr,
+                   cm_l1=int((g64["cm"] - h64["cm"]).abs().sum()))
+        ranks_agree = all(torch.equal(card[0]["f64"]["sd"][k], card[1]["f64"]["sd"][k])
+                          for k in g64["sd"])
+        print(f"26(b) the 2-rank float64 step (2x64x96 a rank, TF32 off, pad only) on "
+              f"the card against the same 2-rank step on the CPU: {json.dumps(got)} "
+              f"(gates {json.dumps(F64_TOL)}, matrix equal); the card's ranks hold "
+              f"equal weights {ranks_agree}", flush=True)
+        if any(v > F64_TOL[k] for k, v in got.items() if k != "cm_l1") or got["cm_l1"] \
+                or not ranks_agree:
+            bad.append(f"(b) the 2-rank float64 step, card against CPU: {got}")
+        if bad:
+            raise AssertionError("phase 26: " + "; ".join(bad))
+        return {k: sum(n[k] for n in launches) for k in ("fu_hist", "fu_grad")}
+    finally:
+        cpu_ranks.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4303,6 +4761,8 @@ def main() -> int:
         semi = phase(23, phase23_semi, dev, data)
         graphs = phase(24, phase24_remaining_graphs, dev, data)
         extras = phase(25, phase25_served_extras, dev, data)
+        parallel = phase(26, phase26_parallel, dev, data)
+    b1["parallel_launches"], b2["parallel_launches"] = parallel["fu_hist"], parallel["fu_grad"]
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -4366,4 +4826,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank26a"]:       # phase 26(a)'s worker, under torchrun
+        sys.path.insert(0, ROOT)
+        sys.exit(rank26a(sys.argv[2]))
     sys.exit(main())

@@ -36,7 +36,7 @@ def pad_or_trim_batches(batches: np.ndarray, steps: int | None) -> np.ndarray:
 
 
 def assemble_batch(dataset, indices, pipeline=None,
-                   rng: np.random.Generator | None = None):
+                   rng: np.random.Generator | None = None, rows: slice | None = None):
     """Stack dataset items into (images u8 NHWC, labels u8 NHW, idx i32 N).
 
     Where no host transform is active and the dataset has `load_batch`
@@ -46,8 +46,19 @@ def assemble_batch(dataset, indices, pipeline=None,
     reads them, and goes through `pipeline`'s host transforms with its own
     `np.random.default_rng(seed)`, the seeds drawn from `rng` up front
     (`rng.integers(0, 2**63 - 1, len(indices))`; 0, 1, ... without `rng`).
-    `dataset.DECODED` counts the batches of each decoder."""
+    `rows` (a data-parallel rank's rows, parallel/dist.py) assembles only
+    those rows of the batch, each with the seed it has in the whole batch,
+    so the ranks together assemble the one-process batch (the role of JAX
+    `device_put_batch`). `dataset.DECODED` counts the batches of each
+    decoder."""
     host_tf = pipeline is not None and pipeline.host_train
+    seeds = None
+    if host_tf:
+        seeds = rng.integers(0, 2**63 - 1, size=len(indices)) if rng is not None \
+            else np.arange(len(indices))
+    if rows is not None:
+        indices = np.asarray(indices)[rows]
+        seeds = None if seeds is None else seeds[rows]
     native = dataset.load_batch(indices) \
         if not host_tf and hasattr(dataset, "load_batch") else None
     if native is not None:
@@ -57,8 +68,6 @@ def assemble_batch(dataset, indices, pipeline=None,
 
     items = [dataset[int(i)][:2] for i in indices]
     if host_tf:
-        seeds = rng.integers(0, 2**63 - 1, size=len(indices)) if rng is not None \
-            else np.arange(len(indices))
         items = [pipeline.apply_host(img, lbl, np.random.default_rng(seed))
                  for (img, lbl), seed in zip(items, seeds)]
     if getattr(dataset, "decodes", False):
@@ -153,17 +162,19 @@ class Prefetcher:
 
 
 def epoch_iterator(dataset, batches, device: str | torch.device = "cuda",
-                   prefetch: int = 2, pipeline=None, seed: int = 0):
+                   prefetch: int = 2, pipeline=None, seed: int = 0,
+                   rows: slice | None = None):
     """Yield (images u8 NHWC, labels u8 NHW, idx i32) tensors on `device`
-    for each index batch of `batches`, in order; `pipeline`'s host
-    transforms draw from `np.random.default_rng(seed)` (the Trainer's seed
-    plus the epoch, so a resumed epoch draws what it drew)."""
+    for each index batch of `batches`, in order, or for its `rows` alone
+    (`assemble_batch`); `pipeline`'s host transforms draw from
+    `np.random.default_rng(seed)` (the Trainer's seed plus the epoch, so a
+    resumed epoch draws what it drew)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def gen():
         for idx in batches:
-            yield assemble_batch(dataset, idx, pipeline, rng)
+            yield assemble_batch(dataset, idx, pipeline, rng, rows)
 
     if prefetch > 0:
         pf = Prefetcher(gen(), dev, depth=prefetch)

@@ -6,7 +6,14 @@
 
 The command line always runs on the card: `-d N` selects cuda:N (cuda
 without it). `main(argv, device=...)` takes another device for callers
-such as the tests. Modes (config['mode']): training (`Trainer.train`,
+such as the tests. Under torchrun each rank runs on cuda:LOCAL_RANK, one
+process per GPU, data-parallel (parallel/dist.py):
+
+    torchrun --nproc_per_node N -m \
+        miccai2021_cataract_semantic_segmentation_tpu_torch.main -c cfg.json
+
+and `-d` is refused there (a CPU caller's ranks form a gloo group).
+Modes (config['mode']): training (`Trainer.train`,
 resumed from the `last` checkpoint of the run that `load_checkpoint`
 names, where the config names one), inference (the best checkpoint of
 that run, then `Trainer.infer`, with TTA where the config sets `tta`) and
@@ -38,20 +45,29 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None, device=None) -> dict:
     """Run the config's mode; returns the run's metrics."""
     args = build_argparser().parse_args(argv)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
+        close, init_from_env, under_torchrun)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import (
         apply_cli_overrides, parse_config)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
 
     config = apply_cli_overrides(parse_config(args.config, args.user, args.device),
                                  args)
+    if args.device >= 0 and under_torchrun():
+        raise SystemExit("-d does not apply under torchrun: each rank runs on "
+                         "cuda:LOCAL_RANK")
     if device is None:
         device = f"cuda:{args.device}" if args.device >= 0 else "cuda"
     mode = config.get("mode", "training")
     video = mode in ("video_inference", "demo_video_inference")
     if mode not in ("training", "inference") and not video:
         raise ValueError(f"Unknown mode '{mode}'")
-    trainer = Trainer(config, device=device)
+    world = init_from_env(device)
+    trainer = None
     try:
+        if video and world.size > 1:
+            raise SystemExit(f"{mode} runs in one process, not over {world.size} ranks")
+        trainer = Trainer(config, world=world)
         if config.get("load_checkpoint"):
             trainer.load_checkpoint("last" if mode == "training" else "best",
                                     run_id=config["load_checkpoint"])
@@ -61,7 +77,9 @@ def main(argv=None, device=None) -> dict:
             return demo_infer(trainer)
         return trainer.train() if mode == "training" else trainer.infer()
     finally:
-        trainer.close()
+        if trainer is not None:
+            trainer.close()
+        close(world)
 
 
 if __name__ == "__main__":

@@ -45,11 +45,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     so both modes keep cuDNN's kernel and the normalisation (which uses the
     biased variance in both frameworks) is untouched. The kernel updates a
     copy of the buffer, which autograd keeps for the backward; the buffer
-    itself takes the corrected value."""
+    itself takes the corrected value.
+
+    Under a data group of several ranks (`group`, which
+    parallel/dist.py:`global_batch_norm` sets for a train step) train mode
+    normalises over the global batch, as the JAX package's one GSPMD
+    program does: see `_global_forward`. Eval mode, and train mode without
+    a group, take the path above."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.group is not None:
+            return self._global_forward(x)
         self.num_batches_tracked.add_(1)
         var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
@@ -59,6 +69,36 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(
                 var - (var - (1.0 - self.momentum) * self.running_var) / n)
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BatchNorm over the group's global batch: each rank's
+        per-channel sum and sum of squares of x - shift and its count, in
+        at least float32, summed over the ranks by one all-reduce that
+        carries the gradient (`DataGroup.sum_`); the global mean and biased
+        variance normalise the local rows and update the running
+        statistics (the biased update, as above). The shift is the running
+        mean, the same on every rank, which keeps the sum of squares from
+        cancelling."""
+        acc = acc_dtype(x)
+        c = x.shape[1]
+        shift = self.running_mean.to(acc, copy=True)
+        xc = x.to(acc) - shift[None, :, None, None]
+        count = torch.full((1,), x.numel() // c, dtype=acc, device=x.device)
+        stats = self.group.sum_(torch.cat([xc.sum((0, 2, 3)),
+                                           (xc * xc).sum((0, 2, 3)), count]))
+        n = stats[2 * c]
+        d = stats[:c] / n
+        var = stats[c:2 * c] / n - d * d
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xc - d[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias.to(acc)[None, :, None, None]
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(
+                m * (shift + d).to(self.running_mean.dtype))
+            self.running_var.mul_(1.0 - m).add_(m * var.to(self.running_var.dtype))
+        return y.to(x.dtype)
 
 
 def batch_norm(channels: int, momentum: float = BN_MOMENTUM,

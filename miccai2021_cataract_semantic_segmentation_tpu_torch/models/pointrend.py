@@ -45,6 +45,10 @@ class PointDraws:
     over: torch.Tensor
     rand: torch.Tensor | None
 
+    def select(self, rows) -> "PointDraws":
+        """The draws of the images `rows` selects."""
+        return PointDraws(self.over[rows], None if self.rand is None else self.rand[rows])
+
 
 def point_sample(feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """NCHW `feats` sampled at (B, P, 2) normalised coords -> (B, C, P).

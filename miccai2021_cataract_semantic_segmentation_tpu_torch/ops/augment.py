@@ -183,6 +183,11 @@ class AugmentDraws:
         return AugmentDraws(*(getattr(self, f).to(device) for f in
                               ("flip", "blur", "sigma", "jitter", "pseudo_gate")))
 
+    def select(self, rows) -> "AugmentDraws":
+        """The draws of the images `rows` (a slice or an index) selects."""
+        return AugmentDraws(*(getattr(self, f)[rows] for f in
+                              ("flip", "blur", "sigma", "jitter", "pseudo_gate")))
+
 
 def jitter_ranges(spec: DeviceAugmentSpec):
     """The four (low, high) factor ranges of the spec's colour jitter."""

@@ -2,7 +2,8 @@
 
     python -m miccai2021_cataract_semantic_segmentation_tpu_torch.tools.export_serving \
         -c configs/OCRNet_pretrained_t2.json [-dp <root>] [-r <run_id>] \
-        [-w best|last] [-o out.pt2] [--batch N] [--device cuda|cuda:N|cpu] [--tta]
+        [-w best|last] [-o out.pt2] [--batch N] [--device cuda|cuda:N|cpu] [--tta] \
+        [--mesh N]
 
 Builds the model from the config, restores the checkpoint (the config's
 `load_checkpoint` run by default, as inference mode does) and writes one
@@ -10,8 +11,10 @@ Builds the model from the config, restores the checkpoint (the config's
 (unless --batch pins it), beside a `.json` sidecar. The artifact runs on
 the device it was exported on (`--device`, the card by default) under
 torch alone; see train/export.py. The JAX package's `--platforms` is
-`--device` here; `--mesh` (serving over several GPUs) is ROADMAP Queue A
-item 15 and raises.
+`--device` here. `--mesh N` exports for serving the pinned batch over N
+devices (cuda:0 .. cuda:N-1, or N copies of the CPU with `--device cpu`),
+each on its contiguous shard: load it with
+`train/export.py:load_serving(path, mesh=devices)`.
 """
 from __future__ import annotations
 
@@ -36,15 +39,14 @@ def main(argv=None):
     ap.add_argument("--tta", action="store_true",
                     help="put the flip x multi-scale TTA recipe into the artifact")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="shard the batch over N GPUs (not ported: ROADMAP item 15)")
+                    help="shard the batch over N devices (data-parallel "
+                         "serving; requires --batch divisible by N)")
     args = ap.parse_args(argv)
 
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train import export as exp
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import parse_config
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
 
-    if args.mesh:
-        exp._no_mesh(args.mesh)
     config = parse_config(args.config)
     config["mode"] = "inference"
     if args.data_path:
@@ -64,12 +66,24 @@ def main(argv=None):
     elif not run_id:
         ap.error("no checkpoint specified: pass -r <run_id> or set "
                  "'load_checkpoint' in the config")
+    mesh = None
+    if args.mesh:
+        import torch
+        if torch.device(args.device).type == "cpu":
+            mesh = ["cpu"] * args.mesh
+        elif args.mesh > torch.cuda.device_count():
+            ap.error(f"--mesh {args.mesh} exceeds the {torch.cuda.device_count()} "
+                     "available devices; the artifact's device assignment "
+                     "must be built on the target parallelism")
+        else:
+            mesh = [f"cuda:{i}" for i in range(args.mesh)]
     trainer = Trainer(config, device=args.device)
     try:
         if not is_ensemble:
             trainer.load_checkpoint(args.which, run_id=run_id)
         out = args.out or (trainer.run_dir / f"serving_{args.which}{exp.SUFFIX}")
-        path = exp.export_trainer(trainer, out, batch=args.batch, tta=args.tta)
+        path = exp.export_trainer(trainer, out, batch=args.batch, tta=args.tta,
+                                  mesh=mesh)
     finally:
         trainer.close()
     print(f"exported {path} ({path.stat().st_size / 1e6:.1f} MB) for {trainer.device}")

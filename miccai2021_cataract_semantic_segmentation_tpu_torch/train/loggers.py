@@ -21,6 +21,31 @@ import numpy as np
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 
 
+class NullLogger:
+    """TBLogger's interface, writing nothing (the ranks other than 0)."""
+
+    def __init__(self, log_dir=None):
+        pass
+
+    def scalar(self, tag, value, step):
+        pass
+
+    def scalars(self, values, step, prefix=""):
+        pass
+
+    def image(self, tag, img_hwc_u8, step):
+        pass
+
+    def figure(self, tag, fig, step):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class TBLogger:
     def __init__(self, log_dir):
         self.log_dir = pathlib.Path(log_dir)

@@ -36,6 +36,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import conf
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import (
     clipped_argmax, downsample_labels)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
+    DataGroup, global_batch_norm)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
     TrainState, global_norm)
 
@@ -190,11 +192,6 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
     return step
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
-                               f"item {item})")
-
-
 def step_draws(spec: DeviceAugmentSpec, n: int, seed: int,
                step: int) -> AugmentDraws:
     """The augmentation draws of train step `step`: a generator seeded from
@@ -270,7 +267,7 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                     device: str | torch.device = "cuda",
                     precision: str = "bf16", train_metrics: str = "full",
                     seed: int = 0, debug_pred: bool = False,
-                    has_point_head: bool = False, mesh=None,
+                    has_point_head: bool = False, group: DataGroup | None = None,
                     semi: dict | None = None):
     """step(state, images_u8, labels_u8, epoch, draws=None, points=None)
     -> metrics.
@@ -293,21 +290,33 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     forward computes the full-resolution outputs that the loss
     (`loss_fn.full_res`) and the metrics read, and no others.
 
-    `semi` ({"threshold", "ignore_id"}; the JAX package's "n_shards" must
-    be 1 on one card) makes the step semi-supervised, as the JAX package's:
-    the batch is [labelled half | unlabelled half], the unlabelled half's
-    labels become `teacher_labels` of the augmented unlabelled images, the
-    loss (SemiSupervisedLoss) splits the batch the same way, and the
-    confusion matrix counts the labelled half only.
+    `semi` ({"threshold", "ignore_id"}, and the JAX package's "n_shards",
+    which must be the group's `n_use` where given) makes the step
+    semi-supervised, as the JAX package's: each rank's block of the batch
+    is [labelled half | unlabelled half] (the shard-blocked layout of JAX
+    `_semi_part`), the unlabelled half's labels become `teacher_labels` of
+    the augmented unlabelled images, the loss (SemiSupervisedLoss) splits
+    the block the same way, and the confusion matrix counts the labelled
+    halves only.
 
     `has_point_head` (a PointRend decoder) gives the forward the step's
     point draws (`step_points(decoder, n, seed, state.step)` unless
     `points` gives draws or the points themselves) and adds `point_loss`
-    to the total and to the terms (with semi mode's `ignore_id`)."""
-    if semi is not None and int(semi.get("n_shards", 1)) != 1:
-        raise _not_ported("semi-supervised training over several GPUs", "15")
-    if mesh is not None:
-        raise _not_ported("training over several GPUs", "15")
+    to the total and to the terms (with semi mode's `ignore_id`).
+
+    `group` (parallel/dist.py:`DataGroup`) runs the step data-parallel, as
+    the JAX step over a mesh (`_sharded_loss`): `images_u8` and `labels_u8`
+    are this rank's rows of the global batch; the draws, given or drawn,
+    are the global batch's, and the rank takes its rows of them; the
+    BatchNorms normalise over the global batch; the loss is each rank's
+    over its own rows, and the total and every term reported are their
+    mean over the ranks; the gradients are averaged over the ranks (one
+    all-reduce, in parameter order) before `grad_norm`, the clip and the
+    update; the confusion matrix is summed over the ranks."""
+    group = group or DataGroup()
+    if semi is not None and int(semi.get("n_shards", group.n_use)) != group.n_use:
+        raise ValueError(f"the semi batch is laid out in {semi['n_shards']} shard "
+                         f"blocks, but {group.n_use} ranks take part")
     if train_metrics not in ("s8", "full"):
         raise ValueError(f"train_metrics must be 's8' or 'full', got "
                          f"'{train_metrics}'")
@@ -320,11 +329,13 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
              points: PointDraws | torch.Tensor | None = None) -> dict:
         model = state.model
         images, labels = _to_device(images_u8, dev), _to_device(labels_u8, dev)
+        n_global = images.shape[0] * group.n_use
+        rows = group.local_rows(n_global)
         if draws is None:
-            draws = step_draws(spec, images.shape[0], seed, state.step)
-        x, lbl = augment_batch(images, labels, spec, draws)
+            draws = step_draws(spec, n_global, seed, state.step)
+        x, lbl = augment_batch(images, labels, spec, draws.select(rows))
         x = x.permute(0, 3, 1, 2).contiguous()
-        # the semi batch's labelled samples: its first half
+        # the semi block's labelled samples: its first half
         half = x.shape[0] // 2 if semi is not None else x.shape[0]
         if semi is not None:
             pseudo = teacher_labels(model, x[half:], precision, semi["threshold"],
@@ -332,9 +343,13 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             lbl = torch.cat([lbl[:half], pseudo.to(lbl.dtype)])
         decoder = point_decoder(model) if has_point_head else None
         if decoder is not None and points is None:
-            points = step_points(decoder, x.shape[0], seed, state.step, dev)
+            points = step_points(decoder, n_global, seed, state.step, dev)
+        if points is not None:
+            points = points.select(rows) if isinstance(points, PointDraws) \
+                else points[rows]
         model.train()
-        outputs = _forward(model, x, precision, full_res, points)
+        with global_batch_norm(model, group):
+            outputs = _forward(model, x, precision, full_res, points)
         total, terms = loss_fn(outputs, lbl, epoch=epoch, step=state.step)
         if has_point_head and "point_logits" in outputs:
             p_loss = point_loss(outputs, lbl, task,
@@ -345,6 +360,7 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
         total.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         with torch.no_grad():
+            group.mean_(grads)
             grad_norm = global_norm(grads)
             state.apply_gradients(grads)
             s8 = outputs.get("logits_s8", outputs.get("logits_s8_acf"))
@@ -353,8 +369,12 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                                       downsample_labels(lbl[:half], s8.shape[2:]))
             else:
                 cm = confusion_matrix(outputs["logits"][:half], lbl[:half])
-        metrics = {"loss": total.detach(),
-                   **{k: v.detach() for k, v in terms.items()},
+            group.all_reduce_(cm)
+            scalars = [total.detach()] + [v.detach().to(total.dtype)
+                                          for v in terms.values()]
+            group.mean_(scalars)
+        metrics = {"loss": scalars[0],
+                   **{k: v.to(terms[k].dtype) for k, v in zip(terms, scalars[1:])},
                    "confusion_matrix": cm, "grad_norm": grad_norm}
         if debug_pred:
             with torch.no_grad():

@@ -21,6 +21,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
     mean_iou_breakdown, pixel_accuracy)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import DataGroup
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
@@ -54,11 +55,13 @@ def has_point_head(graph: dict) -> bool:
 def train_steps(model: torch.nn.Module, config: dict, images: np.ndarray,
                 labels: np.ndarray, batches, *,
                 device: str | torch.device = "cuda", seed: int = 0,
-                epoch: int = 0) -> dict:
+                epoch: int = 0, group: DataGroup | None = None) -> dict:
     """Train `model` in place on uint8 `images` (n, H, W, 3) and task-space
     uint8 `labels` (n, H, W), one step per index batch of `batches`, under
     `config` (graph/loss/data/train/precision keys of a run config). The
-    LR schedule counts `len(batches)` steps per epoch.
+    LR schedule counts `len(batches)` steps per epoch. Under a data group
+    (parallel/dist.py) each rank feeds its rows of every index batch, and
+    the metrics are the global batch's on every rank.
 
     Returns the epoch's train metrics as the Trainer reports them (`loss`,
     the mean of the step losses; `miou` and `pa` of the summed confusion
@@ -80,13 +83,14 @@ def train_steps(model: torch.nn.Module, config: dict, images: np.ndarray,
     step = make_train_step(loss_fn, spec, task, device=dev,
                            precision=config.get("precision", "bf16"),
                            train_metrics=train_metrics_source(config),
-                           seed=seed,
+                           seed=seed, group=group,
                            has_point_head=has_point_head(config.get("graph", {})))
     losses, cm_total = [], None
     n_frames = 0
     t0 = time.perf_counter()
     for idx in batches:
-        m = step(state, images[idx], labels[idx], epoch)
+        rows = idx if group is None else np.asarray(idx)[group.local_rows(len(idx))]
+        m = step(state, images[rows], labels[rows], epoch)
         losses.append(m["loss"])
         cm_total = m["confusion_matrix"] if cm_total is None \
             else cm_total + m["confusion_matrix"]

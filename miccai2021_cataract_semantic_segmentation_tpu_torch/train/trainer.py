@@ -45,6 +45,23 @@ multi-scale test-time augmentation (`tta_scales`, default 0.75, 1, 1.5,
 the merged probabilities. In semi mode without a given pool, the pool is
 the training split's surgery videos under `data_path`
 (data/semi.py:unlabeled_from_videos).
+
+Over several processes (the `world` its caller formed: the CLI's
+`init_from_env` under torchrun, or a process group formed beforehand;
+parallel/dist.py) the Trainer is data-parallel as the JAX Trainer is over
+its mesh: the first gcd(labelled batch, world size) ranks take part (the
+others print why and leave `train` at its final barrier), every rank
+computes the same index batches and feeds its contiguous rows of each
+(in semi mode each rank's block is [labelled | unlabelled], the JAX
+package's shard-blocked layout), the train step averages the loss and the
+gradients and sums the confusion matrix over the ranks (train/steps.py),
+`validate` and `infer` send the eval batches round the ranks and sum
+their matrices and losses, so every rank holds the same metrics, best
+mIoU and checkpoint decisions. Rank 0 alone writes the checkpoints (the
+others wait at a barrier), the TensorBoard or scalars.jsonl logs,
+info.json, ind_dist.npz, the triptychs (those of the other ranks' batches
+gathered to it) and the debugging dumps (of its own rows). Every rank
+loads a checkpoint it resumes from.
 """
 from __future__ import annotations
 
@@ -77,9 +94,11 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
     mean_iou_breakdown, normalise_confusion_matrix, pixel_accuracy)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.remap import mask_to_colormap
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
+    DataGroup, World, broadcast_object, current_world)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train import checkpoint as ckpt
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.loggers import (
-    StepTimer, TBLogger, confusion_matrix_figure, index_histogram_figure,
+    NullLogger, StepTimer, TBLogger, confusion_matrix_figure, index_histogram_figure,
     profile_steps)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
@@ -88,6 +107,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
     make_tta_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import (
     has_point_head, train_metrics_source)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import sum_losses
 
 
 def _is_resnet_tensor(key: str) -> bool:
@@ -123,11 +143,16 @@ def _breakdown(cm: np.ndarray, task: int) -> dict:
 
 class Trainer:
     def __init__(self, config: dict, datasets=None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", world: World | None = None):
         """`datasets`: optional (train_dataset, valid_dataset, train_df,
         valid_df[, unlabeled_dataset]) override for synthetic and test runs;
-        semi mode needs the fifth, the unlabelled pool."""
-        self.device = resolve_device(device)
+        semi mode needs the fifth, the unlabelled pool. `world` is the
+        caller's (parallel/dist.py: `init_from_env` forms it under
+        torchrun), on its device; without it the Trainer runs in the
+        process group formed beforehand, or alone, on `device`. The Trainer
+        forms and destroys no group."""
+        self.world = world or current_world(device)
+        self.device = resolve_device(self.world.device)
         self.config = config
         self.task = int(config["data"]["experiment"])
         self.mode = config.get("mode", "training")
@@ -143,12 +168,14 @@ class Trainer:
         self.semi = (loss_cfg.get("name") == "SemiSupervisedLoss"
                      and self.mode == "training")
 
-        self.run_id = config.get("run_id") or "{}_e{}__{}".format(
+        # the ranks share rank 0's clock-named run
+        self.run_id = config.get("run_id") or broadcast_object(self.world, "{}_e{}__{}".format(
             datetime.datetime.now().strftime("%Y%m%d_%H%M%S"), self.task,
-            config.get("name", "run"))
+            config.get("name", "run")))
         self.run_dir = pathlib.Path(config.get("log_path", "logs")) / self.run_id
         self.ckpt_dir = self.run_dir / "chkpts"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        if self.world.rank == 0:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
 
         # data -------------------------------------------------------------
         dcfg = config["data"]
@@ -194,6 +221,10 @@ class Trainer:
             self._iter_set = self.train_set
         # labelled samples per batch: a semi batch is [labelled | unlabelled]
         self.lab_batch_size = self.batch_size // 2 if self.semi else self.batch_size
+        # the ranks that take part: the JAX Trainer's mesh over
+        # gcd(labelled batch, devices); semi mode shards by the labelled
+        # half, so each rank's block is an equal [labelled | unlabelled]
+        self.group = DataGroup.of(self.world, self.lab_batch_size)
 
         # the per-epoch loader schedule (BaseManager.py:202-213): a loader's
         # [start] runs it from `start` to the end, [start, end] up to `end`
@@ -216,8 +247,9 @@ class Trainer:
                             for e in range(self.epochs)]
 
         # bookkeeping ------------------------------------------------------
-        self.train_writer = TBLogger(self.run_dir / "train")
-        self.valid_writer = TBLogger(self.run_dir / "valid")
+        writer = TBLogger if self.group.chief else NullLogger
+        self.train_writer = writer(self.run_dir / "train")
+        self.valid_writer = writer(self.run_dir / "valid")
         self.global_step = 0
         self.start_epoch = 0
         self.best_miou = 0.0
@@ -270,7 +302,7 @@ class Trainer:
             self.loss_fn, self.pipeline.device, self.task, device=self.device,
             precision=self.precision, train_metrics=train_metrics_source(config),
             seed=self.seed, debug_pred=self.debugging, semi=semi_spec,
-            has_point_head=has_point_head(graph))
+            has_point_head=has_point_head(graph), group=self.group)
 
     def _init_ensemble(self, graph: dict) -> None:
         """Inference-only Ensemble (the reference's Ensemble_Manager.py:7-16
@@ -401,9 +433,14 @@ class Trainer:
             raise ValueError(f"epoch {epoch} ({mode}) has no full batch of {bs} "
                              f"from {n} training frames")
         if self.semi:
+            # shard-blocked: each rank's contiguous block of the batch is
+            # [labelled | unlabelled] (JAX trainer.py:420-431)
             unlab = n + np_rng.integers(0, len(self.unlabeled_set),
                                         size=(len(batches), self.batch_size - bs))
-            batches = np.concatenate([batches, unlab], axis=1)
+            n_sh = self.group.n_use
+            batches = np.concatenate([batches.reshape(len(batches), n_sh, -1),
+                                      unlab.reshape(len(unlab), n_sh, -1)],
+                                     axis=2).reshape(len(batches), self.batch_size)
         return batches
 
     def _count_inds(self, epoch: int, batches: np.ndarray) -> None:
@@ -414,16 +451,40 @@ class Trainer:
         np.add.at(self.ind_counts, flat[flat < len(self.ind_counts)], 1)
 
     # --------------------------------------------------------------- train
+    def _sits_out(self, what: str) -> bool:
+        """Whether this rank takes no part (it says why)."""
+        if self.group.active:
+            return False
+        print(f"[{self.run_id}] rank {self.group.rank} of {self.group.size} sits "
+              f"out of {what}: gcd(labelled batch {self.lab_batch_size}, "
+              f"{self.group.size} ranks) = {self.group.n_use} ranks take part")
+        return True
+
+    def _save(self, which: str, epoch: int) -> None:
+        """Rank 0 writes checkpoint `which`; the ranks meet after it."""
+        if self.group.chief:
+            ckpt.save_checkpoint(self.ckpt_dir, which, self.model, epoch,
+                                 self.best_miou, self.best_loss, self.state)
+        self.group.barrier()
+
     def train(self) -> dict:
         """Train from `start_epoch` to `epochs`, validating each epoch;
-        returns the last validation's metrics."""
+        returns the last validation's metrics (a rank that sits out returns
+        none, after the world's final barrier)."""
+        if self._sits_out("training"):
+            self.group.world_barrier()
+            return {}
         cfg = self.config
+        chief = self.group.chief
         print(f"[{self.run_id}] training {cfg.get('graph', {}).get('model')} "
               f"task {self.task}: {self.num_params / 1e6:.1f}M params, "
               f"{self.steps_per_epoch} steps/epoch x {self.epochs} epochs on "
-              f"{self.device}")
-        ckpt.write_info_json(self.run_dir, cfg, self.metrics)
+              f"{self.device}" + (f", rank {self.group.rank} of {self.group.n_use}"
+                                  if self.group.n_use > 1 else ""))
+        if chief:
+            ckpt.write_info_json(self.run_dir, cfg, self.metrics)
         np_rng = np.random.default_rng(self.seed)
+        rows = self.group.local_rows(self.batch_size)
         # resume: the index streams are functions of the seeds alone, so
         # replaying the epochs already trained leaves np_rng, the samplers'
         # generators and ind_counts where an uninterrupted run has them
@@ -442,13 +503,13 @@ class Trainer:
             timer = StepTimer()     # the epoch's steps, not the validation between
             t_epoch = time.perf_counter()
             with contextlib.ExitStack() as stack:
-                if profile_epoch == epoch:
+                if profile_epoch == epoch and chief:
                     stack.enter_context(profile_steps(self.run_dir, self.device))
                 for bi, (images, labels, _) in enumerate(epoch_iterator(
                         self._iter_set, batches, self.device, prefetch=2,
-                        pipeline=self.pipeline, seed=self.seed + epoch)):
+                        pipeline=self.pipeline, seed=self.seed + epoch, rows=rows)):
                     m = self.train_step(self.state, images, labels, epoch)
-                    if self.debugging:
+                    if self.debugging and chief:
                         self._dump_debug_batch(m, epoch, bi)
                     cm = m["confusion_matrix"]
                     running_cm = cm if running_cm is None else running_cm + cm
@@ -479,9 +540,10 @@ class Trainer:
             bd = mean_iou_breakdown(cm, self.task)
             pa, _ = pixel_accuracy(cm)
             fps = len(batches) * self.batch_size / seconds
-            print(f"[{self.run_id}] epoch {epoch:03d}: loss {loss:.4f} "
-                  f"miou {float(bd['miou']):.4f} pa {float(pa):.4f} "
-                  f"{timer.mean_ms:.0f} ms/step {fps:.1f} fps")
+            if chief:
+                print(f"[{self.run_id}] epoch {epoch:03d}: loss {loss:.4f} "
+                      f"miou {float(bd['miou']):.4f} pa {float(pa):.4f} "
+                      f"{timer.mean_ms:.0f} ms/step {fps:.1f} fps")
             self.train_metrics = {
                 "epoch": epoch, "miou": float(bd["miou"]), "pa": float(pa),
                 "loss": loss, "steps": len(batches), "seconds": seconds,
@@ -489,13 +551,14 @@ class Trainer:
             self.train_writer.scalar("metrics/epoch_miou", bd["miou"], epoch)
             self.train_writer.scalar("metrics/epoch_fps", fps, epoch)
             self.validate(epoch)
-        ckpt.save_checkpoint(self.ckpt_dir, "last", self.model, self.epochs - 1,
-                             self.best_miou, self.best_loss, self.state)
-        self.train_writer.figure("ind_dist", index_histogram_figure(self.ind_counts),
-                                 self.global_step)
-        np.savez(self.run_dir / "ind_dist.npz", ind_counts=self.ind_counts,
-                 **{f"batches_e{e:03d}": b for e, b in self.epoch_batches.items()})
-        self.train_writer.flush()
+        self._save("last", self.epochs - 1)
+        if chief:
+            self.train_writer.figure("ind_dist", index_histogram_figure(self.ind_counts),
+                                     self.global_step)
+            np.savez(self.run_dir / "ind_dist.npz", ind_counts=self.ind_counts,
+                     **{f"batches_e{e:03d}": b for e, b in self.epoch_batches.items()})
+            self.train_writer.flush()
+        self.group.world_barrier()
         return self.metrics
 
     def _dump_debug_batch(self, m: dict, epoch: int, bi: int) -> None:
@@ -517,27 +580,31 @@ class Trainer:
         last record and its padded rows are masked with label 255, which
         counts nowhere); the loss is the mean over the full batches only.
         The batch size clamps to the set's size, so a small set's one batch
-        is exact."""
+        is exact. Over several ranks the batches go round them and the
+        matrix and the batch losses are summed (in batch order), so every
+        rank holds the one-process metrics."""
         n = len(self.valid_set)
         bs = min(self.valid_batch_size, n)
         batches, n_pad = eval_batches(n, bs)
         max_imgs = int(self.config.get("max_valid_imgs", 10))
+        mine = [bi for bi in range(len(batches)) if self.group.owns(bi)]
         cm_total = np.zeros((self.num_classes, self.num_classes), np.int64)
-        loss_total, n_batches, logged = 0.0, 0, 0
-        for bi, (images, labels, _) in enumerate(epoch_iterator(
-                self.valid_set, batches, self.device, prefetch=2)):
+        losses, triptychs = np.zeros(len(batches)), []
+        for bi, (images, labels, _) in zip(mine, epoch_iterator(
+                self.valid_set, batches[mine], self.device, prefetch=2)):
             if n_pad and bi == len(batches) - 1:
                 labels[bs - n_pad:] = 255
                 logits, lbl, cm = self.eval_step(self.model, images, labels)
             else:
                 logits, lbl, cm, loss = self.eval_loss_step(self.model, images,
                                                             labels, epoch)
-                loss_total += float(loss)
-                n_batches += 1
+                losses[bi] = float(loss)
             cm_total += cm.cpu().numpy().astype(np.int64)
-            if logged < max_imgs:
-                self._log_valid_image(images[0], lbl[0], logits[0], epoch, logged)
-                logged += 1
+            if bi < max_imgs:
+                triptychs.append((bi, self._triptych(images[0], lbl[0], logits[0])))
+        cm_total = self.group.sum_array(cm_total)
+        loss_total, n_batches = sum_losses(self.group.sum_array(losses), n_pad)
+        self._log_triptychs(triptychs, epoch)
         valid_loss = loss_total / max(n_batches, 1)
         bd = _breakdown(cm_total, self.task)
         miou = bd["miou"]
@@ -550,42 +617,51 @@ class Trainer:
         self.valid_writer.scalars(
             {k: v for k, v in self.metrics.items() if isinstance(v, float)},
             self.global_step, prefix="metrics/")
-        for mode in ("row", "col"):
-            fig = confusion_matrix_figure(normalise_confusion_matrix(cm_total, mode),
-                                          self.task)
-            self.valid_writer.figure(f"confusion_matrix/{mode}", fig,
-                                     self.global_step)
-        print(f"[{self.run_id}]   valid: loss {valid_loss:.4f} miou {miou:.4f} "
-              f"(instr {bd['miou_instruments']:.4f} "
-              f"anat {bd['miou_anatomies']:.4f} rare {bd['miou_rare']:.4f})")
+        if self.group.chief:
+            for mode in ("row", "col"):
+                fig = confusion_matrix_figure(normalise_confusion_matrix(cm_total, mode),
+                                              self.task)
+                self.valid_writer.figure(f"confusion_matrix/{mode}", fig,
+                                         self.global_step)
+            print(f"[{self.run_id}]   valid: loss {valid_loss:.4f} miou {miou:.4f} "
+                  f"(instr {bd['miou_instruments']:.4f} "
+                  f"anat {bd['miou_anatomies']:.4f} rare {bd['miou_rare']:.4f})")
         # best-mIoU and periodic checkpoints
         if miou > self.best_miou:
             self.best_miou = miou
-            ckpt.save_checkpoint(self.ckpt_dir, "best", self.model, epoch,
-                                 self.best_miou, self.best_loss, self.state)
+            self._save("best", epoch)
         if valid_loss < self.best_loss:
             self.best_loss = valid_loss
         if (epoch + 1) % self.log_every_n_epochs == 0:
-            ckpt.save_checkpoint(self.ckpt_dir, "last", self.model, epoch,
-                                 self.best_miou, self.best_loss, self.state)
-        ckpt.write_info_json(self.run_dir, self.config, self.metrics)
+            self._save("last", epoch)
+        if self.group.chief:
+            ckpt.write_info_json(self.run_dir, self.config, self.metrics)
         return self.metrics
 
-    def _log_valid_image(self, image, lbl, logits, step, i) -> None:
-        """img|gt|pred triptych of one record (the reference's to_comb_image);
-        also a PNG under <run_dir>/debug/ when `debugging`."""
+    def _triptych(self, image, lbl, logits) -> np.ndarray:
+        """img|gt|pred triptych of one record (the reference's to_comb_image)."""
         img_u8 = image.cpu().numpy()
         lbl = lbl.cpu().numpy()
         pred = logits.argmax(dim=0).cpu().numpy()
         h = min(img_u8.shape[0], lbl.shape[0])
-        comb = np.concatenate([
+        return np.concatenate([
             img_u8[:h], mask_to_colormap(lbl[:h], self.task),
             mask_to_colormap(pred[:h], self.task)], axis=1)
-        self.valid_writer.image(f"valid_img_{i}", comb, step)
-        if self.debugging:
-            dbg = self.run_dir / "debug"
-            dbg.mkdir(exist_ok=True)
-            png.write_png(dbg / f"valid_e{step:03d}_{i}.png", comb)
+
+    def _log_triptychs(self, triptychs, step: int) -> None:
+        """Rank 0 logs the (batch index i, triptych) pairs of every rank in
+        batch order as `valid_img_{i}`, and writes each as a PNG under
+        <run_dir>/debug/ when `debugging`."""
+        gathered = self.group.gather(triptychs)
+        if not self.group.chief:
+            return
+        for i, comb in sorted((t for part in gathered for t in part),
+                              key=lambda t: t[0]):
+            self.valid_writer.image(f"valid_img_{i}", comb, step)
+            if self.debugging:
+                dbg = self.run_dir / "debug"
+                dbg.mkdir(exist_ok=True)
+                png.write_png(dbg / f"valid_e{step:03d}_{i}.png", comb)
 
     # ------------------------------------------------------------ inference
     def load_checkpoint(self, which: str = "best", run_id: str | None = None) -> dict:
@@ -611,6 +687,8 @@ class Trainer:
         synchronise), the warm-up excluded. With `tta` the step is the
         flip x multi-scale TTA step (`_make_tta_step`), whose merged
         probabilities give the matrix and the triptychs."""
+        if self._sits_out("inference"):
+            return {}
         tta = bool(self.config.get("tta", False) if tta is None else tta)
         step = self._make_tta_step() if tta else self.eval_step
         n = len(self.valid_set)
@@ -619,23 +697,27 @@ class Trainer:
         max_imgs = int(self.config.get("max_valid_imgs", 10))
         log_at = set(np.round(np.linspace(0, len(batches) - 1,
                                           max_imgs)).astype(int).tolist())
+        mine = [bi for bi in range(len(batches)) if self.group.owns(bi)]
         wi, wl, _ = assemble_batch(self.valid_set, batches[0])
         w_logits, _, _ = step(self.model, wi, wl)
         w_logits[0].argmax(dim=0).cpu()
         self._synchronize()
+        self.group.barrier()
         decoded0 = dict(DECODED)
         cm_total = np.zeros((self.num_classes, self.num_classes), np.int64)
+        triptychs = []
         t0 = time.perf_counter()
-        for bi, (images, labels, _) in enumerate(epoch_iterator(
-                self.valid_set, batches, self.device, prefetch=2)):
+        for bi, (images, labels, _) in zip(mine, epoch_iterator(
+                self.valid_set, batches[mine], self.device, prefetch=2)):
             if n_pad and bi == len(batches) - 1:
                 labels[bs - n_pad:] = 255      # mask the repeated records
             logits, lbl, cm = step(self.model, images, labels)
             cm_total += cm.cpu().numpy().astype(np.int64)
             if bi in log_at:
-                self._log_valid_image(images[0], lbl[0], logits[0],
-                                      self.global_step, bi)
+                triptychs.append((bi, self._triptych(images[0], lbl[0], logits[0])))
         self._synchronize()
+        cm_total = self.group.sum_array(cm_total)
+        self._log_triptychs(triptychs, self.global_step)
         dt = time.perf_counter() - t0
         bd = _breakdown(cm_total, self.task)
         results = {**{k: v for k, v in bd.items() if k != "per_class"},
@@ -644,9 +726,10 @@ class Trainer:
                    "decoded": {k: DECODED[k] - decoded0[k] for k in DECODED},
                    "device": str(self.device), "valid_batch_size": bs,
                    "tta": tta}
-        print(f"[{self.run_id}] infer: " + ", ".join(
-            f"{k} {v}" for k, v in results.items() if k != "confusion_matrix"))
-        ckpt.write_info_json(self.run_dir, self.config, results)
+        if self.group.chief:
+            print(f"[{self.run_id}] infer: " + ", ".join(
+                f"{k} {v}" for k, v in results.items() if k != "confusion_matrix"))
+            ckpt.write_info_json(self.run_dir, self.config, results)
         return results
 
     def _make_tta_step(self):

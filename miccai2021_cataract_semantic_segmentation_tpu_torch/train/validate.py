@@ -18,6 +18,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.pipeline import ev
 from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import (
     mean_iou_breakdown, pixel_accuracy)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import DataGroup
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import (  # noqa: F401
     load_config)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
@@ -31,13 +32,26 @@ def mask_tail_labels(labels: np.ndarray, n_real: int) -> np.ndarray:
     return lbl
 
 
+def sum_losses(losses: np.ndarray, n_pad: int) -> tuple[float, int]:
+    """The sum, in batch order, of the batch losses of the full batches
+    (all but a padded tail) and their number."""
+    full = losses[:-1] if n_pad else losses
+    total = 0.0
+    for v in full:
+        total += float(v)
+    return total, len(full)
+
+
 def validate(model, config: dict, images: np.ndarray, labels: np.ndarray,
              *, device: str | torch.device = "cuda",
-             batch_size: int | None = None, epoch: int = 0) -> dict:
+             batch_size: int | None = None, epoch: int = 0,
+             group: DataGroup | None = None) -> dict:
     """Validate `model` on uint8 `images` (n, H, W, 3) and task-space uint8
     `labels` (n, H, W) under `config` (graph/loss/data/precision keys of a
     run config). Returns the JAX Trainer's metric keys plus the int64
-    `confusion_matrix`."""
+    `confusion_matrix`. Under a data group (parallel/dist.py) the batches
+    go round the ranks, and the matrix and each batch's loss are summed
+    over them: every rank returns the one-process metrics."""
     dev = resolve_device(device)
     task = int(config["data"]["experiment"])
     num_classes = taxonomy.TASK_NUM_CLASSES[task]
@@ -51,17 +65,21 @@ def validate(model, config: dict, images: np.ndarray, labels: np.ndarray,
     n = len(images)
     bs = min(batch_size or int(config.get("valid_batch_size") or 8), n)
     batches, n_pad = eval_batches(n, bs)
+    group = group or DataGroup()
     cm_total = np.zeros((num_classes, num_classes), np.int64)
-    loss_total, n_batches = 0.0, 0
+    losses = np.zeros(len(batches))
     for bi, idx in enumerate(batches):
+        if not group.owns(bi):
+            continue
         imgs, lbls = images[idx], labels[idx]
         if n_pad and bi == len(batches) - 1:
             _, _, cm = eval_step(model, imgs, mask_tail_labels(lbls, bs - n_pad))
         else:
             _, _, cm, loss = eval_loss_step(model, imgs, lbls, epoch)
-            loss_total += float(loss)
-            n_batches += 1
+            losses[bi] = float(loss)
         cm_total += cm.cpu().numpy().astype(np.int64)
+    cm_total = group.sum_array(cm_total)
+    loss_total, n_batches = sum_losses(group.sum_array(losses), n_pad)
     bd = mean_iou_breakdown(cm_total, task)
     pa, pac = pixel_accuracy(cm_total)
     return {

@@ -13,7 +13,10 @@
   artifact and its sidecar (the JAX sidecar's keys and the device) from a
   Trainer on a synthetic PNG tree, the served outputs equal to the
   Trainer's eval step; the artifact loads and serves in a subprocess with
-  the port package and jax blocked; `mesh` raises naming item 15.
+  the port package and jax blocked; the same Trainer exports over a mesh
+  of two CPU devices (`export_trainer`, `export_fn` and the tool's
+  `--mesh 2`), serving equal to the one-device artifact, and an
+  undivisible batch is refused.
 """
 import json
 import pathlib
@@ -208,7 +211,8 @@ def test_export_trainer_writes_the_artifact_and_its_sidecar(published, tmp_path)
     meta = json.loads(path.with_suffix(".pt2.json").read_text())
     jax_keys = {"input", "output", "task", "num_classes", "class_names", "colormap_rgb",
                 "tta_scales", "mesh_devices", "run_id"}
-    assert set(meta) == jax_keys | {"device"} and meta["device"] == "cpu"
+    assert set(meta) == jax_keys | {"device", "batch"} and meta["device"] == "cpu"
+    assert meta["batch"] is None and meta["mesh_devices"] is None
     assert meta["output"]["pred"] == ["batch", TH + 4, TW] and meta["num_classes"] == 17
     x = images(2, seed=3, h=TH, w=TW)
     got = served(export.load_serving(path), x)
@@ -216,18 +220,31 @@ def test_export_trainer_writes_the_artifact_and_its_sidecar(published, tmp_path)
     np.testing.assert_array_equal(got["pred"], logits.argmax(1).numpy())
     conf = torch.softmax(logits, 1).amax(1).numpy()
     np.testing.assert_allclose(got["confidence"], conf, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        export.export_trainer(t, tmp_path / "m", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        export.export_fn(export.make_serving_fn(t.model, None), (TH, TW), mesh=object())
+    # over a mesh each device runs one image: bit-equal to the one-device
+    # artifact image by image; its batch-2 convolutions round otherwise
+    mesh_path = export.export_trainer(t, tmp_path / "m", batch=2, mesh=["cpu", "cpu"])
+    meta = json.loads(mesh_path.with_suffix(".pt2.json").read_text())
+    assert (meta["mesh_devices"], meta["batch"]) == (2, 2)
+    on_mesh = served(export.load_serving(mesh_path, mesh=["cpu", "cpu"]), x)
+    one = [served(export.load_serving(path), x[i:i + 1]) for i in range(2)]
+    _equal(on_mesh, {k: np.concatenate([o[k] for o in one]) for k in got}, tol=0)
+    _equal(on_mesh, got)
+    with pytest.raises(ValueError, match="pinned batch divisible by 2"):
+        export.export_fn(export.make_serving_fn(t.model, None), (TH, TW), mesh=["cpu"] * 2)
     t.close()
     tool = export_serving.main(["-c", str(root / "cfg.json"), "--device", "cpu",
                                 "--batch", "2", "-o", str(tmp_path / "tool")])
     meta = json.loads(tool.with_suffix(".pt2.json").read_text())
     assert tool.name == "tool.pt2" and meta["tta_scales"] is None
     _equal(served(export.load_serving(tool), x), got, tol=0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        export_serving.main(["-c", str(root / "cfg.json"), "--device", "cpu", "--mesh", "2"])
+    tool = export_serving.main(["-c", str(root / "cfg.json"), "--device", "cpu",
+                                "--mesh", "2", "--batch", "4", "-o", str(tmp_path / "mesh")])
+    meta = json.loads(tool.with_suffix(".pt2.json").read_text())
+    assert (meta["mesh_devices"], meta["batch"]) == (2, 4)
+    x4 = images(4, seed=5, h=TH, w=TW)
+    one = [served(export.load_serving(path), x4[i:i + 2]) for i in (0, 2)]
+    _equal(served(export.load_serving(tool, mesh=["cpu", "cpu"]), x4),
+           {k: np.concatenate([o[k] for o in one]) for k in got}, tol=0)
 
 
 _LOAD = """

@@ -7,13 +7,15 @@ on disk, and in a second process the affine and crop host transforms in
 a batch, OCRNet's projector on a LossWrapper with both dense-contrastive
 terms and a semi-supervised train step, and in a third the video path on
 the port's own AVI, both video modes through the CLI and the serving
-export, run with them blocked), nor pandas, cv2, PIL, matplotlib or
+export, and in a fourth a train step over two gloo ranks and the export
+over a mesh, run with them blocked), nor pandas, cv2, PIL, matplotlib or
 tensorboard, which the card's machine lacks (blocked in the same run; a
 source may import them only inside a `try` that catches ImportError), its
 entry points refuse to run on a missing card unless asked for the CPU,
 and its CPU path launches no kernel."""
 import ast
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -30,6 +32,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
     eval_spec, make_eval_loss_step, make_eval_step, make_train_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.main import main
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.sharded_twins import (
+    main as sharded_twins_main)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import (
@@ -329,6 +333,65 @@ def test_video_and_export_run_with_jax_and_cv2_blocked():
     assert res["leaked"] == []
 
 
+# the blocking prelude as a sitecustomize module, so that the ranks the
+# launcher starts (processes of their own) block what this one blocks
+_SITECUSTOMIZE = _SUBPROCESS[:_SUBPROCESS.index("import numpy")]
+_PARALLEL = """
+import json, sys
+from sitecustomize import ABSENT, BLOCKED
+try:
+    import jax
+    blocked = False
+except ImportError:
+    blocked = True
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
+from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import sharded_twins
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train import export
+from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import EvalSpec
+twins = sharded_twins.compare_sharded(backbone="resnet18", h=32, w=64, bs=4, n_pool=4,
+                                      n_steps=1, device="cpu")
+serve = export.make_serving_fn(build_model({"model": "FCN", "width": 0.125}, 2,
+                                           device="cpu"), EvalSpec(pad=True))
+x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 30, 40, 3),
+                                                        dtype=np.uint8))
+mesh = export.MeshServing(export.export_fn(serve, (30, 40), batch=4,
+                                           mesh=["cpu", "cpu"]), ["cpu", "cpu"])
+with torch.no_grad():
+    got, want = mesh(x), serve(x)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT
+                and sys.modules[m] is not None)
+print(json.dumps({"blocked": blocked, "twins": [twins["ranks"], twins["ranks_agree"],
+                            twins["losses_sharded"]],
+                  "served": bool(torch.equal(got["pred"], want["pred"])),
+                  "launches": {k: v.launches for k, v in KERNELS.items()},
+                  "leaked": leaked}))
+"""
+
+
+def test_parallel_step_and_mesh_export_run_with_jax_blocked(tmp_path):
+    """A 2-rank train step (the sharded twins' arm; each rank a process of
+    its own, which loads the same blocking prelude as its sitecustomize)
+    and the serving export over a mesh of two CPU devices."""
+    (tmp_path / "sitecustomize.py").write_text(_SITECUSTOMIZE % (BLOCKED, CARD_ABSENT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    out = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["blocked"]
+    ranks, agree, losses = res["twins"]
+    assert ranks == 2 and agree and len(losses) == 1 and np.isfinite(losses[0])
+    assert res["served"]
+    assert res["launches"] == dict.fromkeys(KERNELS, 0)
+    assert res["leaked"] == []
+
+
 def _port_sources():
     return sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) \
         + ["chip_smoke.py"]
@@ -366,7 +429,7 @@ def _no_card():
 @pytest.mark.parametrize("entry", ["build_model", "build_loss",
                                    "make_eval_step", "make_eval_loss_step",
                                    "validate", "make_train_step", "train_steps",
-                                   "Trainer", "main"])
+                                   "Trainer", "main", "sharded_twins"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
     spec = eval_spec(CONFIG["data"]["transforms"])
@@ -389,6 +452,7 @@ def test_default_device_raises_without_cuda(entry):
             np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 8, 8), np.uint8)),
         "Trainer": lambda: Trainer(CONFIG),
         "main": lambda: main(["-c", str(ROOT / "configs" / "OCRNet_pretrained_t2.json")]),
+        "sharded_twins": lambda: sharded_twins_main(["--tiny", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -55,6 +55,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import Ba
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import ObjectAttention
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops import augment as aug
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import downsample_labels
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel import DataGroup
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train import lr_schedule as lr
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.bridge import bridge_ocrnet
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
@@ -558,19 +559,23 @@ def test_train_steps_runs_the_epoch_core():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    # the first case keeps the id it had while the semi step itself raised
-    # (item 11); it now checks the semi step over several shards (item 15)
-    pytest.param({"semi": {"threshold": 0.9, "ignore_id": 17, "n_shards": 2}}, "15",
+    # the ids are the ones these cases had while the semi step (item 11)
+    # and the steps over several GPUs (item 15) raised; each now builds
+    pytest.param({"semi": {"threshold": 0.9, "ignore_id": 17, "n_shards": 2},
+                  "group": DataGroup(rank=0, size=2, n_use=2)}, "15",
                  id="kwargs0-11"),
     pytest.param({"has_point_head": True}, "12", id="kwargs1-12"),
-    pytest.param({"mesh": object()}, "15", id="kwargs2-15")])
+    pytest.param({"group": DataGroup()}, "15", id="kwargs2-15")])
 def test_train_step_paths_of_later_slices_raise(kwargs, item):
-    """The paths of later slices raise; the point head (item 12) now builds
-    a step (tests/test_torch_pointrend.py runs it)."""
-    if item == "12":
-        assert callable(make_train_step(None, device_spec(PAD_ONLY), 2, device="cpu",
-                                        **kwargs))
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make_train_step(None, device_spec(PAD_ONLY), 2, device="cpu", **kwargs)
+    """The paths of later slices build a step: the point head (item 12;
+    tests/test_torch_pointrend.py runs it), the semi step over two shard
+    blocks and the step under a data group (item 15;
+    tests/test_torch_parallel.py runs them). A semi layout of other shard
+    blocks than the group's ranks is refused."""
+    assert callable(make_train_step(None, device_spec(PAD_ONLY), 2, device="cpu",
+                                    **kwargs))
+    if "semi" in kwargs:
+        with pytest.raises(ValueError, match="2 shard blocks, but 1 ranks"):
+            make_train_step(None, device_spec(PAD_ONLY), 2, device="cpu",
+                            semi=kwargs["semi"])
 
