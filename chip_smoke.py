@@ -264,7 +264,22 @@ Phases (any failure raises and the run exits non-zero):
      (within PAR_LOSS_TOL), then the 2-rank float64 step of phase 8's input
      on the card against the same step on two CPU ranks (F64_TOL); (c) the
      serving export over [cuda:0, cuda:0] at batch 8 bit-equal, shard by
-     shard, to the one-device artifact; (d) the times of (a) and (b).
+     shard, to the one-device artifact; (d) the times of (a) and (b);
+ 27. the offline tools, the reproduction harness and the twins: (a) the
+     sort and the bucket twin of tools/trajectory_twins.py (port package)
+     at full width (OCRNet-R50 os8, task 2, learnable 540x960 frames padded
+     to 544x960, batch 8, bf16, B 1024, pool 32, Adam at 1e-4, data seed 0,
+     20 steps a twin): one B1 and one B2 each bucket step and no kernel on
+     a sort step, every loss finite, the first-step losses within 1e-3;
+     both trajectories, the tail gap, rel_param_distance, each twin's ms a
+     step and the peak memory; (b) tools/reproduce_paper.py (port package)
+     on phase 20's tree with seed-0 OCRNet-R50 .pt files for t1-t3 in the
+     reference's layout: exit 1 (random weights miss the paper's band),
+     each task's mIoU that of `Trainer.infer` on the same config and
+     frames, no kernel launched; (c) tools/build_frame_table.py over that
+     tree, its paths and class counts equal to the tree's data.csv,
+     class_distribution and split_quality on the result, add_blacklist
+     round-tripping it.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -2311,6 +2326,17 @@ def decode_timings(root) -> dict:
     return out
 
 
+def write_served_tree(data, images, canon) -> None:
+    """Phase 20's CaDIS tree: the frames under split 2's test videos, in
+    turn, and the first three again under training videos."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+        write_tree)
+
+    write_tree(data, np.concatenate([images, images[:len(LEFT_OUT)]]),
+               np.concatenate([canon, canon[:len(LEFT_OUT)]]),
+               [TEST_VIDEOS[i % 3] for i in range(len(images))] + list(LEFT_OUT))
+
+
 def phase20_served(dev) -> None:
     """The served path from PNGs on disk: a synthetic CaDIS tree, the three
     published inference configs through the port's CLI, the flagship's
@@ -2326,7 +2352,7 @@ def phase20_served(dev) -> None:
         KERNELS, launch_counts, reset_launches)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
     from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
-        canonical_from_network, write_tree)
+        canonical_from_network)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import (
         save_checkpoint)
     from miccai2021_cataract_semantic_segmentation_tpu_torch.train.config import parse_config
@@ -2340,9 +2366,7 @@ def phase20_served(dev) -> None:
     data, logs = tmp / "data", tmp / "logs"
     try:
         t = time.perf_counter()
-        write_tree(data, np.concatenate([images, images[:len(LEFT_OUT)]]),
-                   np.concatenate([canon, canon[:len(LEFT_OUT)]]),
-                   [TEST_VIDEOS[i % 3] for i in range(n)] + list(LEFT_OUT))
+        write_served_tree(data, images, canon)
         # build the host libraries once, before the CLI's processes start;
         # the PNG path's C++ unfilter raises where it does not build
         native_ok = native_io.available()
@@ -4678,6 +4702,178 @@ def phase26_parallel(dev, data) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the offline tools, the reproduction harness and the twins
+# ---------------------------------------------------------------------------
+
+TWIN27 = dict(backbone="resnet50", h=540, w=960, bs=8, n_pool=32, n_steps=20,
+              n_buckets=1024, lr=1e-4, data_seed=0)
+TWIN27_FIRST_GAP = 1e-3     # tests/test_trajectory_twins.py's envelope
+
+
+def twins27(dev) -> dict:
+    """(a) The sort and bucket twins at full width through the port's
+    tools/trajectory_twins.py, the launches of each step read around it."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.trajectory_twins import (
+        compare_twins)
+
+    steps = {"sort": [], "bucket": []}
+    last = {}
+
+    def on_step(impl, i, metrics):
+        now = launch_counts()
+        steps[impl].append({k: now[k] - last.get(k, 0) for k in now})
+        last.update(now)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    r = compare_twins(**TWIN27, device=dev, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    none = dict.fromkeys(KERNELS, 0)
+    one = dict(none, fu_hist=1, fu_grad=1)
+    print("phase 27 twins (OCRNet-R50 os8, 540x960 padded to 544x960, batch 8, bf16, "
+          f"B 1024, {TWIN27['n_steps']} steps a twin): sort losses {r['losses_sort']}, "
+          f"bucket losses {r['losses_bucket']}; first-step gap "
+          f"{abs(r['losses_sort'][0] - r['losses_bucket'][0])!r}, tail gap "
+          f"{r['final_tail_divergence']!r}, largest gap {r['max_abs_loss_divergence']!r}, "
+          f"rel_param_distance {r['rel_param_distance']!r}; ms/step (host clock, "
+          f"model build included) sort {r['ms_per_step_sort']!r}, bucket "
+          f"{r['ms_per_step_bucket']!r}; peak memory {peak} bytes", flush=True)
+    if any(s != none for s in steps["sort"]) or any(s != one for s in steps["bucket"]):
+        raise AssertionError(f"twin launches a step: sort {steps['sort']}, "
+                             f"bucket {steps['bucket']}")
+    if len(steps["bucket"]) != TWIN27["n_steps"] or not all(
+            np.isfinite(r["losses_sort"] + r["losses_bucket"])):
+        raise AssertionError("a twin's loss is not finite, or a step is missing")
+    if abs(r["losses_sort"][0] - r["losses_bucket"][0]) > TWIN27_FIRST_GAP:
+        raise AssertionError(f"first-step losses {r['losses_sort'][0]} and "
+                             f"{r['losses_bucket'][0]} differ by more than "
+                             f"{TWIN27_FIRST_GAP}")
+    return {"fu_hist": sum(s["fu_hist"] for s in steps["bucket"]),
+            "fu_grad": sum(s["fu_grad"] for s in steps["bucket"])}
+
+
+def reproduce27(dev, data, tmp) -> None:
+    """(b) The port's tools/reproduce_paper.py on phase 20's tree from seed-0
+    OCRNet-R50 .pt files for t1-t3: exit 1, each task's mIoU that of
+    `Trainer.infer` on the same config and frames, no kernel launched."""
+    import contextlib
+    import io
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import reproduce_paper
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
+
+    ckpts = {}
+    for task in (1, 2, 3):
+        cfg = json.loads((pathlib.Path(ROOT) / "configs" / PRETRAINED[task - 1]).read_text())
+        model = build_model(cfg["graph"], task, device=dev, seed=0)
+        ckpts[task] = save_checkpoint(tmp / f"published_t{task}" / "chkpts", "best",
+                                      model, 0, 0.0, 0.0)
+        del model
+    argv = ["--data-root", str(data), "--log-path", str(tmp / "logs"), "--device", str(dev)]
+    argv += [a for task, path in ckpts.items() for a in ("--ckpt", f"{task}={path}")]
+    reset_launches()
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        try:
+            reproduce_paper.main(argv)
+            code = 0
+        except SystemExit as exc:
+            code = exc.code
+    seconds = time.perf_counter() - t
+    launches = launch_counts()
+    out = printed.getvalue().strip().splitlines()
+    print("\n".join(line for line in out if not line.startswith("[")), flush=True)
+    rows = {r["task"]: r for r in json.loads(out[-1])["results"]}
+    args = reproduce_paper.build_argparser().parse_args(argv)
+    for task, path in ckpts.items():
+        trainer = Trainer(reproduce_paper.task_config(task, path, args), device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = 100.0 * trainer.infer()["miou"]
+        trainer.close()
+        if rows[task]["miou"] != want:
+            raise AssertionError(f"t{task}: the harness's mIoU {rows[task]['miou']} is "
+                                 f"not Trainer.infer's {want}")
+    print(f"phase 27 reproduce_paper: exit {code} in {seconds!r} s wall (three tasks); "
+          "each task's mIoU equals Trainer.infer's on its config and frames; launches "
+          f"{launches}", flush=True)
+    if code != 1 or launches != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"reproduce_paper exited {code} (expected 1: random weights) "
+                             f"with launches {launches}")
+
+
+def data_tools27(data, tmp) -> None:
+    """(c) build_frame_table, class_analysis and add_blacklist over the
+    tree: the frame table's paths and counts those of the tree's data.csv."""
+    import contextlib
+    import io
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.dataframe import FrameTable
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import (
+        add_blacklist, build_frame_table, class_analysis)
+
+    t = time.perf_counter()
+    built = build_frame_table.build_frame_table(data)
+    seconds = time.perf_counter() - t
+    tree = FrameTable.read_csv(data / "data.csv")
+    order = np.argsort(tree["img_path"].astype(str), kind="stable")
+    by_path = tree.take(order)
+    if not np.array_equal(built["img_path"].astype(str), by_path["img_path"].astype(str)) \
+            or not np.array_equal(built["lbl_path"].astype(str),
+                                  by_path["lbl_path"].astype(str)):
+        raise AssertionError("build_frame_table's paths are not the tree's")
+    for name in taxonomy.CANONICAL_NAMES:
+        if not np.array_equal(built[name], by_path[name]):
+            raise AssertionError(f"build_frame_table's {name} counts are not the tree's")
+    shares = {task: class_analysis.class_distribution(built, task) for task in (1, 2, 3)}
+    quality = class_analysis.split_quality(built, 2)
+    built.to_csv(tmp / "table.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        add_blacklist.main(["--label-table", str(tmp / "table.csv"),
+                            "--csv", str(tmp / "table.csv"), "-o", str(tmp / "joined.csv")])
+    if (tmp / "joined.csv").read_bytes() != (tmp / "table.csv").read_bytes():
+        raise AssertionError("add_blacklist did not round-trip the table")
+    if any(abs(float(np.nansum(shares[t]["pixel_share"])) - 1) > 1e-12 for t in shares) \
+            or quality["test_frames"] != int(np.isin(built["vid_num"], TEST_VIDEOS).sum()):
+        raise AssertionError("class_distribution or split_quality is off")
+    print(f"phase 27 data tools: build_frame_table {len(built)} frames in {seconds!r} s, "
+          "paths and 36 class counts equal to the tree's data.csv; class_distribution "
+          f"t1-t3 and split_quality (test frames {quality['test_frames']}, t2 classes "
+          f"missing from test {len(quality['test_t2_missing'])}); add_blacklist round-trips",
+          flush=True)
+
+
+def phase27_tools(dev) -> dict:
+    """The offline tools, the reproduction harness and the twins (see the
+    module docstring); returns the bucket twin's B1/B2 launches."""
+    import shutil
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+        canonical_from_network)
+
+    launches = twins27(dev)
+    images, labels = synthetic_set()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_tools_"))
+    try:
+        write_served_tree(tmp / "data", images, canonical_from_network(labels, 2))
+        reproduce27(dev, tmp / "data", tmp)
+        data_tools27(tmp / "data", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4763,6 +4959,8 @@ def main() -> int:
         extras = phase(25, phase25_served_extras, dev, data)
         parallel = phase(26, phase26_parallel, dev, data)
     b1["parallel_launches"], b2["parallel_launches"] = parallel["fu_hist"], parallel["fu_grad"]
+    twins = phase(27, phase27_tools, dev)
+    b1["twins_launches"], b2["twins_launches"] = twins["fu_hist"], twins["fu_grad"]
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -4810,7 +5008,10 @@ def main() -> int:
           f"B1/B3/B4f {extras['pool']['launches']['fu_hist']}/"
           f"{extras['pool']['launches']['bucket_hist']}/"
           f"{extras['pool']['launches']['bucket_dlogits']}, 'video_pool_launches'; 0 on "
-          "TTA, video inference and the served export) "
+          "TTA, video inference and the served export), over the bucket twin of "
+          f"tools/trajectory_twins.py (phase 27: B1/B2 {twins['fu_hist']}/"
+          f"{twins['fu_grad']}, 'twins_launches'; 0 on the sort twin, reproduce_paper "
+          "and the data tools) "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

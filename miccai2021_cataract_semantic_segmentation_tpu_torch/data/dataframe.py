@@ -7,7 +7,9 @@ with `csv` into a `FrameTable`: numpy columns (int64 where every cell is an
 integer, float64 with NaN for blanks where every non-blank cell is a
 number, object strings otherwise, as pandas' `read_csv` types them), with
 `len`, column and row access and a boolean-mask select. A CSV's unnamed
-first column is named "Unnamed: 0", as pandas names it.
+first column is named "Unnamed: 0", as pandas names it. `to_csv` writes
+what pandas' `to_csv(index=False)` writes, byte for byte, and `to_string`
+prints what its `to_string(index=False)` prints.
 
 `load_frame_table` searches, in order: an explicit path, $CADIS_DATA_CSV,
 <data_path>/data.csv, <repo>/data/data.csv.
@@ -95,6 +97,50 @@ class FrameTable:
         cols = {k: v for k, v in self._cols.items() if k != name}
         new = {name: np.asarray(values)}
         return FrameTable({**new, **cols} if first else {**cols, **new})
+
+    def set_column(self, name: str, values) -> "FrameTable":
+        """A table with column `name` set to `values`: in its place where it
+        exists, else last (pandas' `df[name] = values`)."""
+        return FrameTable({**self._cols, name: np.asarray(values)})
+
+    def to_csv(self, path) -> None:
+        """Write the table as pandas' `to_csv(index=False)` writes it: a
+        header row, then each row; integers and strings as they are,
+        floats by `repr` with NaN and None blank, bools as True/False,
+        minimal quoting, "\\n" line ends."""
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(self.columns)
+            cols = [[_cell(x) for x in v] for v in self._cols.values()]
+            w.writerows(zip(*cols))
+
+    def to_string(self, float_format: str | None = None) -> str:
+        """The table as pandas' `to_string(index=False, float_format=...)`
+        prints it: every column right-justified to its widest cell, the
+        columns two spaces apart; floats by `float_format` (NaN as NaN)."""
+        def text(x):
+            if isinstance(x, (float, np.floating)):
+                return "NaN" if np.isnan(x) else \
+                    (float_format % x if float_format else repr(float(x)))
+            return _cell(x)
+
+        cols = []
+        for name, v in self._cols.items():
+            cells = [name] + [text(x) for x in v]
+            width = max(map(len, cells))
+            cols.append([c.rjust(width) for c in cells])
+        return "\n".join("  ".join(row) for row in zip(*cols))
+
+
+def _cell(x) -> str:
+    """One value as pandas' `to_csv` writes it."""
+    if x is None:
+        return ""
+    if isinstance(x, (bool, np.bool_)):
+        return str(bool(x))
+    if isinstance(x, (float, np.floating)):
+        return "" if np.isnan(x) else repr(float(x))
+    return str(x)
 
 
 def load_frame_table(path: str | None = None,

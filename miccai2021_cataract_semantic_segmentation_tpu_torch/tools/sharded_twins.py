@@ -42,6 +42,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_mod
 from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
     DataGroup, init_from_env)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.launch import spawn
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.trajectory_twins import (
+    make_learnable_frames)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
@@ -59,28 +61,6 @@ def twin_config(backbone: str, n_buckets: int, lr: float = 1e-4) -> dict:
                      "final": {"name": "LovaszSoftmax", "weight": 1.0}},
             "transforms": ["flip", "colorjitter"],
             "train": {"epochs": 50, "learning_rate": lr}, "precision": "fp32"}
-
-
-def learnable_frames(rng: np.random.Generator, n: int, h: int, w: int,
-                     num_classes: int):
-    """(images u8 NHWC, labels u8 NHW): elliptical blobs whose colour names
-    the class, which any segmentation model can learn (the repository's
-    tools/trajectory_twins.py:make_learnable_frames)."""
-    palette = rng.integers(40, 255, (num_classes, 3)).astype(np.float32)
-    imgs = np.zeros((n, h, w, 3), np.float32)
-    lbls = np.zeros((n, h, w), np.uint8)
-    yy, xx = np.mgrid[0:h, 0:w]
-    for i in range(n):
-        imgs[i] = palette[0]
-        for _ in range(6):
-            c = int(rng.integers(1, num_classes))
-            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
-            ry, rx = rng.uniform(h / 10, h / 3), rng.uniform(w / 10, w / 3)
-            mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
-            imgs[i][mask] = palette[c]
-            lbls[i][mask] = c
-    imgs += rng.normal(0, 8.0, imgs.shape)
-    return np.clip(imgs, 0, 255).astype(np.uint8), lbls
 
 
 def arm(model: torch.nn.Module, cfg: dict, batches, n_steps: int, *,
@@ -150,7 +130,7 @@ def compare_sharded(*, backbone: str, h: int, w: int, bs: int, n_pool: int,
     report."""
     device = str(resolve_device(device))
     rng = np.random.default_rng(data_seed)
-    pool_i, pool_l = learnable_frames(rng, n_pool, h, w, 17)
+    pool_i, pool_l = make_learnable_frames(rng, n_pool, h, w, 17)
     batches = [(pool_i[k:k + bs], pool_l[k:k + bs])
                for k in range(0, n_pool - bs + 1, bs)]
     cfg = twin_config(backbone, n_buckets)

@@ -5,7 +5,8 @@ EncDec-UPerNet's validation on the LossWrapper, the prototype fused
 upsample's checks and the CLI's inference and training from a PNG tree
 on disk, and in a second process the affine and crop host transforms in
 a batch, OCRNet's projector on a LossWrapper with both dense-contrastive
-terms and a semi-supervised train step, and in a third the video path on
+terms, a semi-supervised train step and the offline data tools' mains
+(build_frame_table, class_analysis, add_blacklist), and in a third the video path on
 the port's own AVI, both video modes through the CLI and the serving
 export, and in a fourth a train step over two gloo ranks and the export
 over a mesh, run with them blocked), nor pandas, cv2, PIL, matplotlib or
@@ -32,8 +33,12 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
     eval_spec, make_eval_loss_step, make_eval_step, make_train_step)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.main import main
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.reproduce_paper import (
+    main as reproduce_paper_main)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.sharded_twins import (
     main as sharded_twins_main)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.trajectory_twins import (
+    main as trajectory_twins_main)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.train import train_steps
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.trainer import Trainer
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.validate import (
@@ -231,10 +236,28 @@ semi_step = make_train_step(semi_loss, device_spec(["pad"]), 2, device="cpu", pr
                             semi={"threshold": 0.1, "ignore_id": 17})
 semi_m = semi_step(create_train_state(hr, hr_train, make_schedule(hr_train, 1)),
                    images[:, :30, :40], labels[:, :30, :40], 0)
+import contextlib, io, pathlib, tempfile
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import (
+    add_blacklist, build_frame_table, class_analysis)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.tools.synthetic_tree import (
+    canonical_from_network, write_tree)
+tools_dir = tempfile.TemporaryDirectory()
+tree = pathlib.Path(tools_dir.name)
+write_tree(tree / "data", images, canonical_from_network(labels, 2), [2, 12])
+table = str(tree / "table.csv")
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    build_frame_table.main(["-p", str(tree / "data"), "-o", table])
+    class_analysis.main(["--csv", table])
+    class_analysis.main(["--csv", table, "--check-labels", str(tree / "data"), "--task", "2"])
+    add_blacklist.main(["--label-table", table, "--csv", table, "-o", str(tree / "lt.csv")])
+tools_out = printed.getvalue().splitlines()
+tools_dir.cleanup()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT
                 and sys.modules[m] is not None)
 print(json.dumps({"host_shape": list(host_batch[0].shape), "dc_terms": dc_terms,
                   "semi": [float(semi_m[k]) for k in ("labeled", "unlabeled")],
+                  "tools": tools_out,
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
 """
@@ -249,6 +272,11 @@ def test_training_vocabulary_runs_with_jax_blocked():
     assert all(np.isfinite(v) for v in res["dc_terms"].values())
     assert res["dc_terms"]["DenseContrastiveLoss"] > 0
     assert all(np.isfinite(v) for v in res["semi"])
+    tools = res["tools"]
+    assert tools[0].startswith("2 frames x 2 videos -> ")
+    assert "--- task 3 class distribution ---" in tools
+    assert "test_frames: 2" in tools and "wrote 2 overlay images" in tools
+    assert tools[-1].startswith("2 rows -> ")
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
 
@@ -429,7 +457,8 @@ def _no_card():
 @pytest.mark.parametrize("entry", ["build_model", "build_loss",
                                    "make_eval_step", "make_eval_loss_step",
                                    "validate", "make_train_step", "train_steps",
-                                   "Trainer", "main", "sharded_twins"])
+                                   "Trainer", "main", "sharded_twins",
+                                   "trajectory_twins", "reproduce_paper"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
     spec = eval_spec(CONFIG["data"]["transforms"])
@@ -453,6 +482,9 @@ def test_default_device_raises_without_cuda(entry):
         "Trainer": lambda: Trainer(CONFIG),
         "main": lambda: main(["-c", str(ROOT / "configs" / "OCRNet_pretrained_t2.json")]),
         "sharded_twins": lambda: sharded_twins_main(["--tiny", "--steps", "1"]),
+        "trajectory_twins": lambda: trajectory_twins_main(["--cpu-scale", "--steps", "1"]),
+        "reproduce_paper": lambda: reproduce_paper_main([
+            "--data-root", str(ROOT / "data"), "--ckpt", "2=unread.pt"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
