@@ -255,7 +255,7 @@ Phases (any failure raises and the run exits non-zero):
      (bit-equal), and the flagship step timed with no group and with the
      rank's data group in turns; (b) two gloo ranks on cuda:0 (NCCL
      refuses two ranks on one card): gloo's all-reduces of CUDA tensors
-     (the functional one with its gradient), then the flagship step at
+     (the differentiable one with its gradient), then the flagship step at
      544x960 on a global batch of 8 in bf16, one B1 and one B2 a rank, its
      summed confusion matrix against the same step in one process on the
      same 8 frames and draws (the label counts equal, at most
@@ -279,7 +279,22 @@ Phases (any failure raises and the run exits non-zero):
      frames, no kernel launched; (c) tools/build_frame_table.py over that
      tree, its paths and class counts equal to the tree's data.csv,
      class_distribution and split_quality on the result, add_blacklist
-     round-tripping it.
+     round-tripping it;
+ 28. the spatial grid (parallel/spatial.py): the JAX dry run's 2-D mesh as
+     a (1, 2) grid of two gloo ranks on cuda:0, each holding 272 of the
+     544 padded rows of every activation of OCRNet-R50 at output stride 8,
+     on the flagship's loss and augmentation at 544x960, global batch 8:
+     (a) its float32 step (TF32 off) against the same step in one process
+     on the same frames, weights and draws, held to GRID28_RATIO times
+     what 1e-7 of weight noise moves the one-process step (grad_norm, the
+     BatchNorm statistics, the share of Adam updates that change sign),
+     the loss within 1e-5; each rank's step time and the time inside
+     gloo's all-reduces; (b) one bf16 step, its loss difference and the
+     matrix's share of moved pixels printed; (c) the eval step of the
+     one-process step's weights, its classes against one process's, held
+     the same way; (d) rank 0 alone writes the checkpoint, both ranks
+     restore it bit-equal; (e) one B1 and one B2 a rank in the step; (f)
+     a rank's peak memory at most GRID28_MEMORY_SHARE of one process's.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -4445,7 +4460,7 @@ def rank26a(payload: str) -> int:
 def rank26b(rank: int, world: int, payload: str) -> dict:
     """Phase 26(b)'s rank (parallel/launch.py: gloo, a FileStore), on the
     payload's device: on the card, gloo's all-reduces of CUDA tensors
-    (the functional one with its gradient, and the in-place one) and the
+    (the differentiable one with its gradient, and the in-place one) and the
     flagship's first train step at full width on this rank's half of a
     global batch of 8 in bf16 (`flagship_step26`), its launches counted,
     its summed matrix, reported loss and the rank's own loss, then the
@@ -4874,6 +4889,358 @@ def phase27_tools(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the spatial grid, activation rows split over ranks
+# ---------------------------------------------------------------------------
+
+# the JAX dry run's 2-D mesh on one card: one data rank, two model ranks,
+# each holding 272 of the 544 padded rows of every activation
+GRID28, BATCH28 = (1, 2), 8
+# (a) the grid's float32 step (TF32 off) against one process's on the same
+# frames, weights and draws: both compute one function and differ in the
+# order of their sums (cuDNN's algorithms at 272 against 544 rows, the
+# BatchNorm and OCR-context sums split over two ranks), float32 rounding.
+# A pair on a bucket's edge may then change bucket, which moves the
+# Lovász gradient by a step of its own, and Adam's first update,
+# lr * g / (|g| + eps), changes sign where g lies within rounding of 0.
+# How far rounding moves this step is measured in the same run: the
+# one-process step from the same weights scaled by 1 + GRID28_NOISE * a
+# normal draw (one or two float32 ulps a weight). The grid is held to
+# GRID28_RATIO times that distance (or to the floor, where the noise moved
+# less) in grad_norm (relative), the BatchNorm statistics (largest
+# relative L2 over the buffers) and the share of parameters whose update
+# differs by more than lr / 2; its loss and terms within 1e-5 of one
+# process's (a loss of about 1.3); no parameter further than 2 lr. An
+# H100 read the grid 2.0e-3, 8.6e-6 and 1.9e-3 away, the noise 2.7e-3,
+# 8.2e-6 and 3.7e-3 (PERF.md §6)
+GRID28_NOISE = 1e-7
+GRID28_RATIO = 3.0
+GRID28_FLOOR = {"grad_norm": 1e-4, "stats": 1e-5, "flip_share": 1e-4}
+GRID28_LOSS_TOL = 1e-5
+# (c) the eval step (float32, TF32 off) of the same weights, the
+# one-process step's: the share of the 8 x 544 x 960 pixels whose class
+# differs from one process's, held to GRID28_RATIO times the share that
+# GRID28_NOISE on those weights moves (floor 1e-4): after one step the
+# eval-mode BatchNorms hold their initial statistics and many pixels'
+# top two logits lie within rounding of each other
+GRID28_PIXEL_FLOOR = 1e-4
+# (f) a rank's peak memory in the step over the one-process step's: the
+# trunk's activations, most of the step's memory at output stride 8, are
+# split in two; the weights, Adam's moments, the frames and the gathered
+# logits are not
+GRID28_MEMORY_SHARE = 0.8
+
+
+def noisy_(model, seed: int = 28) -> None:
+    """Scale every parameter by 1 + GRID28_NOISE * a seeded normal draw."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + GRID28_NOISE * torch.randn(p.shape, generator=gen,
+                                                  dtype=p.dtype).to(p.device))
+
+
+def step_distance(a: dict, b: dict, lr: float) -> dict:
+    """How far step record `a` lies from `b` (`grid28_record`)."""
+    stats = [k for k in b["sd"] if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in b["sd"] if k not in stats and not k.endswith("num_batches_tracked")]
+    dp = torch.cat([(a["sd"][k] - b["sd"][k]).double().reshape(-1) for k in params])
+    return {"loss": max(abs(a["scalars"][k] - b["scalars"][k])
+                        for k in b["scalars"] if k != "grad_norm"),
+            "grad_norm": abs(a["scalars"]["grad_norm"] / b["scalars"]["grad_norm"] - 1),
+            "stats": max(rel_l2(a["sd"][k], b["sd"][k]) for k in stats),
+            "flip_share": float((dp.abs() > lr / 2).double().mean()),
+            "params_max_over_lr": float(dp.abs().max()) / lr,
+            "cm_share": float((a["cm"] - b["cm"]).abs().sum()) / (2 * float(b["cm"].sum()))}
+
+
+def grid28_step(cfg, dev, precision: str, group=None):
+    """The flagship's seed-0 model, train state and train step (the
+    config's loss and augmentation) on `dev` at `precision` over `group`."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.data.transforms import device_spec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import make_train_step
+
+    task = int(cfg["data"]["experiment"])
+    model = build_model(cfg["graph"], task, device=dev, seed=0)
+    state = create_train_state(model, cfg["train"], make_schedule(cfg["train"], 100))
+    step = make_train_step(build_loss(cfg["loss"], task, dev),
+                           device_spec(cfg["data"]["transforms"]), task, device=dev,
+                           precision=precision, train_metrics="s8", group=group)
+    return model, state, step
+
+
+def forward_end_bytes(model) -> dict:
+    """The memory allocated on the card when the model's first forward
+    reaches its last convolution (`conv_out`), recorded under "bytes"."""
+    seen = {}
+
+    def record(module, inputs, output):
+        if "bytes" not in seen and output.is_cuda:
+            seen["bytes"] = torch.cuda.memory_allocated()
+
+    model.conv_out.register_forward_hook(record)
+    return seen
+
+
+def grid28_record(model, m) -> dict:
+    """A step's numbers on the CPU: its scalars, matrix and state dict."""
+    return {"scalars": {k: float(v) for k, v in m.items() if v.ndim == 0},
+            "cm": m["confusion_matrix"].cpu(),
+            "sd": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
+
+
+def grid28_eval(cfg, dev, model, images, labels, group=None):
+    """The eval step (float32) of `model` over `group`: its predicted
+    classes (this rank's rows) and its matrix."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_spec, make_eval_step)
+    step = make_eval_step(eval_spec(cfg["data"]["transforms"]), 17, device=dev,
+                          precision="fp32", group=group)
+    logits, _, cm = step(model, images, labels)
+    return logits.argmax(1).to(torch.uint8).cpu(), cm.cpu()
+
+
+class gloo_timer:
+    """Wall seconds inside `dist.all_reduce` for the block, the card
+    synchronised before each call starts the clock and after it ends."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.orig, self.seconds, self.calls = dist, dist.all_reduce, 0.0, 0
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+
+
+def rank28(rank: int, world: int, payload: str) -> dict:
+    """Phase 28's rank (parallel/launch.py: gloo, a FileStore) on cuda:0,
+    one of the (1, 2) grid's model ranks: (a) the flagship's float32 step
+    (TF32 off) on the global batch's frames, its launches and its peak
+    memory counted, then its time, and a step with gloo's all-reduces
+    timed; (b) a bf16 step from the same weights; (c) the eval step of (a)'s
+    weights; (d) rank 0 saves (a)'s model and train state, both ranks
+    restore them into a fresh model and state."""
+    import torch.distributed as dist
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel import Grid, init_from_env
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train import checkpoint as ckpt
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.lr_schedule import make_schedule
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import create_train_state
+
+    p = json.loads(pathlib.Path(payload).read_text())
+    cfg = json.loads(pathlib.Path(CONFIG).read_text())
+    dev = torch.device(p["device"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grid = Grid.of(init_from_env(dev), GRID28)
+    images, labels = synthetic_set(n=BATCH28, h=p["h"], w=p["w"])
+    rows = grid.local_rows(BATCH28)
+    images, labels = images[rows], labels[rows]
+    out = {"grid": [grid.rank, list(grid.shape), grid.m]}
+
+    model, state, step = grid28_step(cfg, dev, "fp32", grid)
+    forward_end = forward_end_bytes(model)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    m = step(state, images, labels, 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["forward_end_bytes"] = forward_end["bytes"]
+    out["launches"] = launch_counts()
+    out["f32"] = grid28_record(model, m)
+    one = build_model(cfg["graph"], int(cfg["data"]["experiment"]), device=dev, seed=1)
+    one.load_state_dict(torch.load(p["one"], map_location=dev, weights_only=True))
+    out["pred"], out["eval_cm"] = grid28_eval(cfg, dev, one, images, labels, grid)
+    del one
+    directory = pathlib.Path(p["dir"])
+    if grid.chief:
+        ckpt.save_checkpoint(directory, "last", model, 1, 0.0, 0.0, state)
+    dist.barrier()
+    fresh = build_model(cfg["graph"], int(cfg["data"]["experiment"]), device=dev, seed=1)
+    fresh_state = create_train_state(fresh, cfg["train"], make_schedule(cfg["train"], 100))
+    ckpt.restore_checkpoint(directory, "last", fresh, fresh_state)
+    a, b = state.optimizer.state_dict(), fresh_state.optimizer.state_dict()
+    out["restore_equal"] = all(torch.equal(v, fresh.state_dict()[k])
+                               for k, v in model.state_dict().items()) and all(
+        torch.equal(a["state"][i][k], b["state"][i][k])
+        for i in a["state"] for k in a["state"][i]) and fresh_state.step == state.step
+    out["wrote"] = grid.chief
+    dist.barrier()
+    del fresh, fresh_state, a, b
+    if dev.type == "cuda":
+        out["ms"] = cuda_ms(lambda: step(state, images, labels, 0), reps=3, warmup=1)
+        with gloo_timer() as gt:
+            t = time.perf_counter()
+            step(state, images, labels, 0)
+            torch.cuda.synchronize()
+            out["timed_step_s"] = time.perf_counter() - t
+        out["gloo_s"], out["gloo_calls"] = gt.seconds, gt.calls
+    del model, state, step
+    model, state, step = grid28_step(cfg, dev, "bf16", grid)
+    m = step(state, images, labels, 0)
+    out["bf16"] = {"loss": float(m["loss"]), "cm": m["confusion_matrix"].cpu()}
+    return out
+
+
+def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
+    """The spatial grid on the card (see the module docstring); returns
+    B1/B2's launches over the grid's float32 step, summed over the ranks."""
+    import tempfile
+
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        KERNELS, launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.launch import Ranks
+
+    smi = nvidia_smi()
+    cfg = json.loads(pathlib.Path(CONFIG).read_text())
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cadis_grid_"))
+    try:
+        payload = tmp / "grid.json"
+        payload.write_text(json.dumps({"device": str(dev), "h": h, "w": w,
+                                       "dir": str(tmp / "chkpts"),
+                                       "one": str(tmp / "one.pt")}))
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        images, labels = synthetic_set(n=BATCH28, h=h, w=w)
+        try:
+            # one process: the float32 step, its peak memory and time; the eval
+            model, state, step = grid28_step(cfg, dev, "fp32")
+            forward_end = forward_end_bytes(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            m = step(state, images, labels, 0)
+            torch.cuda.synchronize()
+            one_peak = torch.cuda.max_memory_allocated()
+            one_forward_end = forward_end.get("bytes", 0)
+            one_launches = launch_counts()
+            one = grid28_record(model, m)
+            torch.save(model.state_dict(), tmp / "one.pt")
+            one_pred, one_cm = grid28_eval(cfg, dev, model, images, labels)
+            noisy_(model)
+            noise_pred, _ = grid28_eval(cfg, dev, model, images, labels)
+            one_ms = cuda_ms(lambda: step(state, images, labels, 0), reps=3, warmup=1)
+            del model, state, step, m
+            # the rounding reference: the same step from weights moved by noise
+            model, state, step = grid28_step(cfg, dev, "fp32")
+            noisy_(model)
+            noise = grid28_record(model, step(state, images, labels, 0))
+            del model, state, step
+            model, state, step = grid28_step(cfg, dev, "bf16")
+            m = step(state, images, labels, 0)
+            one_bf16 = {"loss": float(m["loss"]), "cm": m["confusion_matrix"].cpu()}
+            del model, state, step, m
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        t = time.perf_counter()
+        ranks = Ranks("chip_smoke:rank28", GRID28[0] * GRID28[1], payload).results(
+            timeout=300)
+        ranks_s = time.perf_counter() - t
+        bad = []
+        want = dict(dict.fromkeys(KERNELS, 0), fu_hist=1, fu_grad=1)
+        launches = [r["launches"] for r in ranks]
+        if any(n != want for n in launches) or one_launches != want:
+            bad.append(f"(e) launches {launches}, one process {one_launches} (want {want})")
+        # (a) the float32 step against one process
+        f32 = ranks[0]["f32"]
+        lr = float(cfg["train"]["learning_rate"])
+        got = step_distance(f32, one, lr)
+        ref = step_distance(noise, one, lr)
+        gates = {k: max(GRID28_RATIO * ref[k], floor) for k, floor in GRID28_FLOOR.items()}
+        ranks_equal = all(torch.equal(r["f32"]["sd"][k], f32["sd"][k])
+                          for r in ranks[1:] for k in f32["sd"]) and all(
+            r["f32"]["scalars"] == f32["scalars"] for r in ranks)
+        print(f"28(a) the (1, 2) grid of two gloo ranks on cuda:0 ({h + 4} padded rows, "
+              f"half a rank), the flagship's float32 step (TF32 off) at {h}x{w}, batch "
+              f"{BATCH28}, against one process: {json.dumps(got)}; the one-process step "
+              f"from weights moved by {GRID28_NOISE} (relative) against it: "
+              f"{json.dumps(ref)}; gates {json.dumps(gates)}, loss {GRID28_LOSS_TOL}, "
+              f"params within 2 lr; ranks equal {ranks_equal}; scalars {f32['scalars']} "
+              f"against {one['scalars']}; card {smi}", flush=True)
+        if any(got[k] > g for k, g in gates.items()) or got["loss"] > GRID28_LOSS_TOL or \
+                got["params_max_over_lr"] > 2.0 + 1e-3 or not ranks_equal:
+            bad.append(f"(a) the grid's float32 step against one process: {got}")
+        print(f"28(a) step times (CUDA events, median of 3, TF32 off): one process "
+              f"{one_ms!r} ms; grid ranks {[r.get('ms') for r in ranks]} ms (both on one "
+              f"card); a step with the all-reduces timed: "
+              f"{[r.get('timed_step_s') for r in ranks]} s, of it inside gloo's all-reduces "
+              f"{[r.get('gloo_s') for r in ranks]} s over "
+              f"{[r.get('gloo_calls') for r in ranks]} calls; the ranks' wall {ranks_s!r} s; "
+              f"card {smi}", flush=True)
+        # (b) bf16
+        b16 = ranks[0]["bf16"]
+        b16_share = float((b16["cm"] - one_bf16["cm"]).abs().sum()) / (
+            2 * float(one_bf16["cm"].sum()))
+        print(f"28(b) one bf16 step on the grid against one process: loss "
+              f"{b16['loss']!r} against {one_bf16['loss']!r} (difference "
+              f"{abs(b16['loss'] - one_bf16['loss'])!r}), the stride-8 matrix's share of "
+              f"pixels in another class {b16_share!r}; card {smi}", flush=True)
+        if not np.isfinite(b16["loss"]) or not torch.equal(b16["cm"].sum(0),
+                                                           one_bf16["cm"].sum(0)):
+            bad.append("(b) the bf16 step's loss is not finite or its label counts differ")
+        # (c) the eval step
+        pred = torch.cat([r["pred"] for r in ranks], dim=1)
+        share = float((pred != one_pred).double().mean())
+        noise_share = float((noise_pred != one_pred).double().mean())
+        pixel_gate = max(GRID28_RATIO * noise_share, GRID28_PIXEL_FLOOR)
+        print(f"28(c) the eval step (float32) of the one-process step's weights on the "
+              f"grid: the share of {pred.numel()} pixels whose class differs from one "
+              f"process's {share!r}; {GRID28_NOISE} of noise on those weights moves "
+              f"{noise_share!r} (gate {pixel_gate!r}); matrices "
+              f"{[int(r['eval_cm'].sum()) for r in ranks]} pixels against "
+              f"{int(one_cm.sum())}", flush=True)
+        if pred.shape != one_pred.shape or share > pixel_gate or any(
+                not torch.equal(r["eval_cm"], ranks[0]["eval_cm"]) for r in ranks) or \
+                int(ranks[0]["eval_cm"].sum()) != int(one_cm.sum()):
+            bad.append(f"(c) the grid's eval step: share {share}")
+        # (d) the checkpoint
+        print(f"28(d) the checkpoint: written by {[r['wrote'] for r in ranks]}, restored "
+              f"bit-equal (model, Adam's state, step) {[r['restore_equal'] for r in ranks]}; "
+              f"files {sorted(q.name for q in (tmp / 'chkpts').iterdir())}", flush=True)
+        if [r["wrote"] for r in ranks] != [True, False] or \
+                not all(r["restore_equal"] for r in ranks):
+            bad.append("(d) the checkpoint round trip")
+        # (f) memory
+        peaks = [r.get("peak_bytes", 0) for r in ranks]
+        mem = [pk / one_peak for pk in peaks]
+        print(f"28(e) launches a rank in the float32 step {launches}; 28(f) peak memory "
+              f"in the step: ranks {[pk / 2**30 for pk in peaks]} GiB, one process "
+              f"{one_peak / 2**30!r} GiB, shares {mem} (gate {GRID28_MEMORY_SHARE}); "
+              f"allocated at the forward's end: ranks "
+              f"{[r.get('forward_end_bytes', 0) / 2**30 for r in ranks]} GiB, one process "
+              f"{one_forward_end / 2**30!r} GiB; card {smi}", flush=True)
+        if max(mem) > GRID28_MEMORY_SHARE:
+            bad.append(f"(f) a rank's peak memory share {mem}")
+        if bad:
+            raise AssertionError("phase 28: " + "; ".join(bad))
+        return {k: sum(n[k] for n in launches) for k in ("fu_hist", "fu_grad")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4961,6 +5328,8 @@ def main() -> int:
     b1["parallel_launches"], b2["parallel_launches"] = parallel["fu_hist"], parallel["fu_grad"]
     twins = phase(27, phase27_tools, dev)
     b1["twins_launches"], b2["twins_launches"] = twins["fu_hist"], twins["fu_grad"]
+    grid = phase(28, phase28_spatial, dev)
+    b1["grid_launches"], b2["grid_launches"] = grid["fu_hist"], grid["fu_grad"]
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -5011,7 +5380,9 @@ def main() -> int:
           "TTA, video inference and the served export), over the bucket twin of "
           f"tools/trajectory_twins.py (phase 27: B1/B2 {twins['fu_hist']}/"
           f"{twins['fu_grad']}, 'twins_launches'; 0 on the sort twin, reproduce_paper "
-          "and the data tools) "
+          "and the data tools), over the (1, 2) spatial grid's float32 step (phase 28: "
+          f"B1/B2 {grid['fu_hist']}/{grid['fu_grad']} summed over the two ranks, "
+          "'grid_launches') "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

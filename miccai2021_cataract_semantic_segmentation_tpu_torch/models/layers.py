@@ -6,6 +6,8 @@ HRNet's torch 0.01 is flax 0.99), and updates
 its running variance in train mode with the biased batch variance, as
 flax does (`BatchNorm2d`). Modules keep the reference's torch state-dict
 names, so a published checkpoint loads with `load_state_dict(strict=True)`.
+`Conv2d` and `MaxPool2d` are torch's, which under a spatial grid
+(parallel/spatial.py, `grid`) work on this rank's band of rows.
 """
 from __future__ import annotations
 
@@ -33,6 +35,68 @@ def acc_dtype(x: torch.Tensor) -> torch.dtype:
 def to_f32(x: torch.Tensor) -> torch.Tensor:
     """Model outputs leave in at-least-f32 (bf16 forwards emit f32 logits)."""
     return x.to(acc_dtype(x))
+
+
+def halo(kernel: int, stride: int, padding: int, dilation: int) -> tuple[int, int]:
+    """The rows above and below a band of rows that a window op reads to
+    give the band's output rows (the band's row count divides by `stride`):
+    `padding` above, dilation (kernel - 1) - padding - stride + 1 below."""
+    return padding, max(0, dilation * (kernel - 1) - padding - stride + 1)
+
+
+def _pair(v) -> tuple:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def band_forward(module: nn.Module, x: torch.Tensor, fill: float, op) -> torch.Tensor:
+    """`op(rows)` of this rank's band `x` of a window op's input (kernel,
+    stride, padding and dilation from `module`, the height's padding
+    replaced by the neighbours' rows and `fill` beyond the image): the
+    band's output rows. A band whose rows the stride does not divide, or
+    that holds fewer rows than a halo, raises ValueError naming the layer."""
+    k, s = _pair(module.kernel_size)[0], _pair(module.stride)[0]
+    p, d = _pair(module.padding)[0], _pair(module.dilation)[0]
+    r = x.shape[2]
+    top, bottom = halo(k, s, p, d)
+    if r % s or max(top, bottom) > r:
+        raise ValueError(
+            f"{module.site}: a band of {r} rows a rank (grid {module.grid.shape}) "
+            f"does not fit a {k}x{k} window at stride {s}, dilation {d} (halo "
+            f"{top} above, {bottom} below): each rank's rows must divide by the "
+            f"stride and hold the halo")
+    if top or bottom:
+        x = module.grid.exchange_halo(x, top, bottom, fill)
+    return op(x)[:, :, :r // s]
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d`; under a spatial grid (`grid`, which
+    parallel/spatial.py:`spatial_rows` sets for a block, `site` its name)
+    it convolves this rank's band of rows, the height's zero padding
+    replaced by the neighbours' rows inside the image."""
+
+    grid = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.grid is None:
+            return super().forward(x)
+        return band_forward(self, x, 0.0, lambda e: F.conv2d(
+            e, self.weight, self.bias, self.stride, (0, self.padding[1]),
+            self.dilation, self.groups))
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """`nn.MaxPool2d`; under a spatial grid, as `Conv2d`, with -inf beyond
+    the image."""
+
+    grid = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.grid is None:
+            return super().forward(x)
+        return band_forward(self, x, float("-inf"), lambda e: F.max_pool2d(
+            e, self.kernel_size, self.stride, (0, _pair(self.padding)[1]),
+            self.dilation, self.ceil_mode))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -73,32 +137,74 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode BatchNorm over the group's global batch: each rank's
         per-channel sum and sum of squares of x - shift and its count, in
-        at least float32, summed over the ranks by one all-reduce that
-        carries the gradient (`DataGroup.sum_`); the global mean and biased
-        variance normalise the local rows and update the running
-        statistics (the biased update, as above). The shift is the running
-        mean, the same on every rank, which keeps the sum of squares from
-        cancelling."""
+        at least float32 (`_ShiftedSums`), summed over the ranks by one
+        all-reduce that carries the gradient (`DataGroup.sum_`); the global
+        mean and biased variance normalise the local rows (`_Normalize`)
+        and update the running statistics (the biased update, as above).
+        The shift is the running mean, the same on every rank, which keeps
+        the sum of squares from cancelling. Both steps keep only x for the
+        backward, as cuDNN's BatchNorm does, not the centred copies."""
         acc = acc_dtype(x)
         c = x.shape[1]
         shift = self.running_mean.to(acc, copy=True)
-        xc = x.to(acc) - shift[None, :, None, None]
         count = torch.full((1,), x.numel() // c, dtype=acc, device=x.device)
-        stats = self.group.sum_(torch.cat([xc.sum((0, 2, 3)),
-                                           (xc * xc).sum((0, 2, 3)), count]))
+        stats = self.group.sum_(torch.cat([*_ShiftedSums.apply(x, shift), count]))
         n = stats[2 * c]
         d = stats[:c] / n
         var = stats[c:2 * c] / n - d * d
-        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
-        y = (xc - d[None, :, None, None]) * scale[None, :, None, None] \
-            + self.bias.to(acc)[None, :, None, None]
+        y = _Normalize.apply(x, shift + d, torch.rsqrt(var + self.eps),
+                             self.weight.to(acc), self.bias.to(acc))
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(
                 m * (shift + d).to(self.running_mean.dtype))
             self.running_var.mul_(1.0 - m).add_(m * var.to(self.running_var.dtype))
-        return y.to(x.dtype)
+        return y
+
+
+_CHANNEL = (1, -1, 1, 1)
+_NOT_CHANNEL = (0, 2, 3)
+
+
+class _ShiftedSums(torch.autograd.Function):
+    """Per-channel sums of NCHW x - shift and of its square, in the
+    shift's dtype; saves x alone (the backward recomputes x - shift)."""
+
+    @staticmethod
+    def forward(ctx, x, shift):
+        ctx.save_for_backward(x, shift)
+        xc = x.to(shift.dtype) - shift.view(_CHANNEL)
+        return xc.sum(_NOT_CHANNEL), (xc * xc).sum(_NOT_CHANNEL)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        x, shift = ctx.saved_tensors
+        xc = x.to(shift.dtype) - shift.view(_CHANNEL)
+        dx = g1.view(_CHANNEL) + 2.0 * xc * g2.view(_CHANNEL)
+        return dx.to(x.dtype), None
+
+
+class _Normalize(torch.autograd.Function):
+    """(x - mean) * invstd * weight + bias per channel of NCHW x, in the
+    vectors' dtype, returned in x's; saves x and the vectors alone."""
+
+    @staticmethod
+    def forward(ctx, x, mean, invstd, weight, bias):
+        ctx.save_for_backward(x, mean, invstd, weight)
+        xc = x.to(mean.dtype) - mean.view(_CHANNEL)
+        return (xc * (invstd * weight).view(_CHANNEL) + bias.view(_CHANNEL)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, invstd, weight = ctx.saved_tensors
+        g = g.to(mean.dtype)
+        xc = x.to(mean.dtype) - mean.view(_CHANNEL)
+        g_xc = (g * xc).sum(_NOT_CHANNEL)
+        d_bias = g.sum(_NOT_CHANNEL)
+        dx = g * (invstd * weight).view(_CHANNEL)
+        return (dx.to(x.dtype), -d_bias * invstd * weight, g_xc * weight,
+                g_xc * invstd, d_bias)
 
 
 def batch_norm(channels: int, momentum: float = BN_MOMENTUM,
@@ -116,7 +222,7 @@ class ConvBN(nn.Sequential):
                  bias: bool = False, bn_momentum: float = BN_MOMENTUM):
         p = torch_pad(kernel_size, stride, dilation)
         super().__init__(
-            nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+            Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                       padding=p, dilation=dilation, bias=bias),
             batch_norm(out_channels, bn_momentum),
             nn.ReLU(inplace=True))

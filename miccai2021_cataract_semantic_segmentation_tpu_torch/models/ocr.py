@@ -22,6 +22,13 @@ leaves this combination unimplemented and has no checkpoint for it.
 
 The gather and attention products run with autocast off in >= f32, as the
 JAX graph accumulates them, and leave in the features' dtype.
+
+Under a spatial grid (parallel/spatial.py, `grid`) the trunk, the
+soft-region head and `conv_high_map` work on this rank's band of rows;
+the spatial gather's softmax and products run over the whole image
+through the model ranks' sums; the object attention is per pixel and
+stays local; the forward gives the stride-8 logits of the band and no
+full-resolution output (the steps read the stride-8 logits whole).
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import (
     HRNetTrunk, hrnet_concat)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
-    ConvBN, acc_dtype, batch_norm, to_f32, upsample_like)
+    Conv2d, ConvBN, acc_dtype, batch_norm, to_f32, upsample_like)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import (
     build_projector)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
@@ -40,16 +47,23 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
 
 
 def spatial_gather(feats: torch.Tensor, probs_logits: torch.Tensor,
-                   scale: float = 1.0) -> torch.Tensor:
-    """(B,C,H,W) feats + (B,K,H,W) class logits -> (B,K,C) class context."""
+                   scale: float = 1.0, grid=None) -> torch.Tensor:
+    """(B,C,H,W) feats + (B,K,H,W) class logits -> (B,K,C) class context.
+    Under a spatial `grid` both hold this rank's rows: the softmax over
+    all positions takes the model ranks' max (no gradient) and sums their
+    exponentials, and the product sums their bands (both with gradient);
+    the context is the same on every model rank."""
     b, c = feats.shape[:2]
     k = probs_logits.shape[1]
     acc = acc_dtype(feats)
     with torch.autocast(feats.device.type, enabled=False):
-        probs = torch.softmax(
-            scale * probs_logits.reshape(b, k, -1).to(acc), dim=2)
+        lg = scale * probs_logits.reshape(b, k, -1).to(acc)
         f = feats.reshape(b, c, -1).to(acc)
-        ctx = torch.bmm(probs, f.transpose(1, 2))
+        if grid is None:
+            return torch.bmm(torch.softmax(lg, dim=2), f.transpose(1, 2)).to(feats.dtype)
+        e = torch.exp(lg - grid.model_max(lg.amax(dim=2, keepdim=True)))
+        probs = e / grid.model_sum(e.sum(dim=2, keepdim=True))
+        ctx = grid.model_sum(torch.bmm(probs, f.transpose(1, 2)))
     return ctx.to(feats.dtype)
 
 
@@ -129,6 +143,8 @@ def hrnet_width(backbone: str) -> int:
 
 
 class OCRNet(nn.Module):
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+
     def __init__(self, task: int = 2, backbone: str = "resnet50",
                  out_stride: int = 8, dropout: float = 0.0,
                  projector: dict | None = None):
@@ -146,7 +162,7 @@ class OCRNet(nn.Module):
         # Sequential(conv, bn, relu, dropout, cls): the reference keeps
         # torch's default bias on both convs
         self.interm_prediction_head = nn.Sequential(
-            nn.Conv2d(c3, 512, 3, stride=interm_stride, padding=1, bias=True),
+            Conv2d(c3, 512, 3, stride=interm_stride, padding=1, bias=True),
             batch_norm(512),
             nn.ReLU(inplace=True), nn.Dropout(dropout),
             nn.Conv2d(512, num_classes, 1, bias=True))
@@ -163,8 +179,12 @@ class OCRNet(nn.Module):
         and `interm_logits`. The eval steps leave out `interm_logits` (the
         fused loss consumes `interm_logits_s8`); a train step whose metrics
         read the stride-8 logits leaves out both, as XLA drops them from the
-        JAX program. Everything else is the same."""
+        JAX program. Everything else is the same. Under a spatial grid
+        `full_res` must be empty."""
         in_hw = x.shape[2:]
+        if self.grid is not None and full_res:
+            raise ValueError(f"under the spatial grid the forward gives no "
+                             f"full-resolution output, not {full_res}")
         if self.on_hrnet:
             low = high = hrnet_concat(self.backbone(x))
         else:
@@ -172,7 +192,7 @@ class OCRNet(nn.Module):
             low, high = feats["layer3"], feats["layer4"]
         interm_logits = self.interm_prediction_head(low)
         pix = self.conv_high_map(high)
-        context = spatial_gather(pix, interm_logits)
+        context = spatial_gather(pix, interm_logits, grid=self.grid)
         logits = self.conv_out(self.spatial_ocr_head(pix, context))
         out = {
             "logits_s8": to_f32(logits),

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
-    BN_MOMENTUM, batch_norm)
+    BN_MOMENTUM, Conv2d, MaxPool2d, batch_norm)
 
 
 class BasicBlock(nn.Module):
@@ -31,15 +31,15 @@ class BasicBlock(nn.Module):
                  dilation: int = 1, downsample: bool = False,
                  bn_momentum: float = BN_MOMENTUM):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride,
+        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride,
                                padding=dilation, dilation=dilation, bias=False)
         self.bn1 = batch_norm(planes, bn_momentum)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
+        self.conv2 = Conv2d(planes, planes, 3, padding=dilation,
                                dilation=dilation, bias=False)
         self.bn2 = batch_norm(planes, bn_momentum)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            nn.Conv2d(in_planes, planes, 1, stride=stride, bias=False),
+            Conv2d(in_planes, planes, 1, stride=stride, bias=False),
             batch_norm(planes, bn_momentum)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -59,16 +59,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = planes * self.expansion
         width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = nn.Conv2d(in_planes, width, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, width, 1, bias=False)
         self.bn1 = batch_norm(width, bn_momentum)
-        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=dilation,
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=dilation,
                                dilation=dilation, groups=groups, bias=False)
         self.bn2 = batch_norm(width, bn_momentum)
-        self.conv3 = nn.Conv2d(width, out, 1, bias=False)
+        self.conv3 = Conv2d(width, out, 1, bias=False)
         self.bn3 = batch_norm(out, bn_momentum)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            nn.Conv2d(in_planes, out, 1, stride=stride, bias=False),
+            Conv2d(in_planes, out, 1, stride=stride, bias=False),
             batch_norm(out, bn_momentum)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,10 +122,10 @@ class ResNetBackbone(nn.Module):
         block, layer_sizes, groups, base_width = _ARCHS[arch]
         wide = {"groups": groups, "base_width": base_width} \
             if block is Bottleneck else {}
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.maxpool = MaxPool2d(3, stride=2, padding=1)
         dilation, in_planes = 1, 64
         for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
                                                   layer_sizes)):

@@ -101,6 +101,24 @@ def broadcast_object(world: World, obj):
     return box[0]
 
 
+class SumGrad(torch.autograd.Function):
+    """The sum of a tensor over a process group (one `dist.all_reduce`);
+    the backward sums the ranks' gradients the same way."""
+
+    @staticmethod
+    def forward(ctx, t, pg):
+        ctx.pg = pg
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=pg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.pg)
+        return g, None
+
+
 @dataclass(frozen=True)
 class DataGroup:
     """The ranks that take part in the steps: the first `n_use` of `size`.
@@ -172,8 +190,7 @@ class DataGroup:
         the ranks' gradients (global BatchNorm's statistics)."""
         if self.n_use == 1:
             return t
-        from torch.distributed import _functional_collectives as fc
-        return fc.wait_tensor(fc.all_reduce(t, "sum", self.pg))
+        return SumGrad.apply(t, self.pg)
 
     def sum_array(self, a: np.ndarray) -> np.ndarray:
         """A host array summed over the ranks (through the group's device)."""

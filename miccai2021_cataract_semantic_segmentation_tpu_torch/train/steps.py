@@ -13,7 +13,9 @@ half of its batch with `teacher_labels`, as the JAX package's does. With
 a PointRend point head (`has_point_head`) the train step draws the
 step's points from a generator seeded from (seed, step) (`step_points`)
 and adds the point head's cross-entropy (`point_loss`) as the
-`point_loss` term.
+`point_loss` term. The train, eval and eval-loss steps also run over a
+spatial grid (parallel/spatial.py: `Grid`, its model ranks each holding a
+band of rows).
 """
 from __future__ import annotations
 
@@ -35,9 +37,12 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.augment import (
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import confusion_matrix
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import (
     clipped_argmax, downsample_labels)
-from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import (
+    interp_matrix, resize_bilinear)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
     DataGroup, global_batch_norm)
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.spatial import (
+    Grid, spatial_rows)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.state import (
     TrainState, global_norm)
 
@@ -106,17 +111,68 @@ def _to_device(a, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(a).to(dev, non_blocking=True)
 
 
+def _spatial_grid(group) -> Grid | None:
+    """The spatial grid a step runs over, or None (a data group, no group,
+    or a grid of one model rank, which runs the data-parallel path)."""
+    return group if isinstance(group, Grid) and group.spatial else None
+
+
+def band_logits(s8: torch.Tensor, out_hw: tuple[int, int], rows: slice) -> torch.Tensor:
+    """The `rows` of the align_corners upsample of whole stride-8 logits
+    `s8` to `out_hw` (ops/resize.py's matrices: its rows of the height's,
+    then the width's), at least float32."""
+    acc = torch.promote_types(s8.dtype, torch.float32)
+    mh = torch.as_tensor(interp_matrix(s8.shape[2], out_hw[0], True)[rows], dtype=acc,
+                         device=s8.device)
+    mw = torch.as_tensor(interp_matrix(s8.shape[3], out_hw[1], True), dtype=acc,
+                         device=s8.device)
+    with torch.autocast(s8.device.type, enabled=False):
+        return torch.matmul(torch.matmul(mh, s8.to(acc)), mw.t())
+
+
+def _spatial_eval(model, x, lbl, precision, grid: Grid):
+    """An eval-mode forward of this rank's band of `x` on the grid: the
+    outputs with the stride-8 logits whole, this rank's rows of the
+    full-resolution logits (rounded to bf16 under "bf16", as the model's
+    own upsample leaves them) and of the labels."""
+    rows = grid.rows(x.shape[2])
+    with spatial_rows(model, grid):
+        outputs = _forward(model, x[:, :, rows].contiguous(), precision, ())
+    outputs = _gathered(outputs, grid)
+    logits = band_logits(outputs["logits_s8"], tuple(x.shape[2:]), rows)
+    if precision == "bf16":
+        logits = logits.to(torch.bfloat16).to(logits.dtype)
+    return outputs, logits, lbl[:, rows]
+
+
+def _gathered(outputs: dict, grid: Grid) -> dict:
+    """`outputs` with both stride-8 logit maps gathered whole."""
+    return {**outputs, **{k: grid.gather_rows(outputs[k])
+                          for k in ("logits_s8", "interm_logits_s8")}}
+
+
 def make_eval_step(spec: EvalSpec | None, num_classes: int,
                    device: str | torch.device = "cuda",
-                   precision: str = "bf16"):
-    """step(model, images_u8, labels_u8) -> (logits, labels, cm)."""
+                   precision: str = "bf16", group: Grid | None = None):
+    """step(model, images_u8, labels_u8) -> (logits, labels, cm).
+
+    Over a spatial grid (`group`) the images and labels are this rank's
+    data shard of the global batch; each model rank runs its band of rows,
+    gathers the stride-8 logits and computes its rows of the
+    full-resolution logits (`band_logits`), which it returns with its rows
+    of the labels; the matrix is summed over the grid (the global batch's)."""
     dev = resolve_device(device)
+    grid = _spatial_grid(group)
 
     @torch.inference_mode()
     def step(model, images_u8, labels_u8):
         model.eval()
         x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
                                  _to_device(labels_u8, dev))
+        if grid is not None:
+            _, logits, lbl = _spatial_eval(model, x, lbl, precision, grid)
+            cm = confusion_matrix(logits, lbl, num_classes)
+            return logits, lbl, grid.norm.all_reduce_(cm)
         logits = _forward(model, x, precision)["logits"]
         return logits, lbl, confusion_matrix(logits, lbl, num_classes)
 
@@ -170,19 +226,33 @@ def make_tta_step(spec: EvalSpec | None, num_classes: int, scales=TTA_SCALES,
 
 def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
                         device: str | torch.device = "cuda",
-                        precision: str = "bf16", num_classes: int | None = None):
+                        precision: str = "bf16", num_classes: int | None = None,
+                        group: Grid | None = None):
     """step(model, images_u8, labels_u8, epoch) -> (logits, labels, cm,
     loss): the eval step plus the validation loss. The matrix counts
     `num_classes` classes where given (the eval step's: a UNet's extra
     ignore channel is left out, as the eval step leaves it out), else the
-    logits' channels."""
+    logits' channels. Over a spatial grid (`group`), as the eval step; the
+    loss is each data shard's, from the gathered stride-8 logits and the
+    shard's labels, averaged over the data ranks."""
     dev = resolve_device(device)
+    grid = _spatial_grid(group)
+    if grid is not None and _loss_full_res(loss_fn):
+        raise NotImplementedError(f"the spatial grid's loss reads the stride-8 logits; "
+                                  f"this one reads {_loss_full_res(loss_fn)}")
 
     @torch.inference_mode()
     def step(model, images_u8, labels_u8, epoch):
         model.eval()
         x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
                                  _to_device(labels_u8, dev))
+        if grid is not None:
+            outputs, logits, band = _spatial_eval(model, x, lbl, precision, grid)
+            total, _ = loss_fn(outputs, lbl, epoch=epoch)
+            total = total.clone()
+            grid.data.mean_([total])
+            cm = grid.norm.all_reduce_(confusion_matrix(logits, band, num_classes))
+            return logits, band, cm, total
         outputs = _forward(model, x, precision,
                            ("logits",) + _loss_full_res(loss_fn))
         total, _ = loss_fn(outputs, lbl, epoch=epoch)
@@ -312,7 +382,29 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     over its own rows, and the total and every term reported are their
     mean over the ranks; the gradients are averaged over the ranks (one
     all-reduce, in parameter order) before `grad_norm`, the clip and the
-    update; the confusion matrix is summed over the ranks."""
+    update; the confusion matrix is summed over the ranks.
+
+    `group` may also be a spatial grid (parallel/spatial.py:`Grid`, JAX's
+    ("data", "model") mesh with images under P("data", "model")): each
+    rank gets its data shard's whole frames, augments them with the global
+    batch's draws and runs the forward on its band of the augmented rows
+    (`spatial_rows`); it gathers both stride-8 logit maps and computes its
+    data shard's loss of them (the same on every model rank); the
+    BatchNorms normalise over the whole grid; the gradients are summed
+    over the model ranks and averaged over the data ranks; the stride-8
+    matrix is counted from the band's rows and summed over the grid. It
+    takes a loss that reads only the stride-8 logits and
+    `train_metrics="s8"`, without semi mode, a point head or the debugging
+    dumps (NotImplementedError). A grid of one model rank runs the
+    data-parallel path over its data group."""
+    grid = _spatial_grid(group)
+    if isinstance(group, Grid):
+        group = group.data
+    if grid is not None and (_loss_full_res(loss_fn) or train_metrics != "s8"
+                             or semi is not None or has_point_head or debug_pred):
+        raise NotImplementedError(
+            "the spatial grid's train step takes a loss of the stride-8 logits and "
+            "train_metrics 's8', without semi mode, a point head or debug_pred")
     group = group or DataGroup()
     if semi is not None and int(semi.get("n_shards", group.n_use)) != group.n_use:
         raise ValueError(f"the semi batch is laid out in {semi['n_shards']} shard "
@@ -334,7 +426,9 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
         if draws is None:
             draws = step_draws(spec, n_global, seed, state.step)
         x, lbl = augment_batch(images, labels, spec, draws.select(rows))
-        x = x.permute(0, 3, 1, 2).contiguous()
+        x = x.permute(0, 3, 1, 2)
+        band = grid.rows(x.shape[2]) if grid is not None else slice(None)
+        x = x[:, :, band].contiguous()
         # the semi block's labelled samples: its first half
         half = x.shape[0] // 2 if semi is not None else x.shape[0]
         if semi is not None:
@@ -348,8 +442,12 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             points = points.select(rows) if isinstance(points, PointDraws) \
                 else points[rows]
         model.train()
-        with global_batch_norm(model, group):
+        with global_batch_norm(model, group if grid is None else grid.norm), \
+                spatial_rows(model, grid):
             outputs = _forward(model, x, precision, full_res, points)
+        local = outputs
+        if grid is not None:
+            outputs = _gathered(outputs, grid)
         total, terms = loss_fn(outputs, lbl, epoch=epoch, step=state.step)
         if has_point_head and "point_logits" in outputs:
             p_loss = point_loss(outputs, lbl, task,
@@ -360,16 +458,23 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
         total.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         with torch.no_grad():
-            group.mean_(grads)
+            if grid is not None:
+                grid.mean_grads_(grads)
+            else:
+                group.mean_(grads)
             grad_norm = global_norm(grads)
             state.apply_gradients(grads)
             s8 = outputs.get("logits_s8", outputs.get("logits_s8_acf"))
-            if train_metrics == "s8" and s8 is not None:
-                cm = confusion_matrix(s8[:half],
-                                      downsample_labels(lbl[:half], s8.shape[2:]))
+            if grid is not None:
+                s8_rows = grid.rows(s8.shape[2])
+                cm = grid.norm.all_reduce_(confusion_matrix(
+                    local["logits_s8"], downsample_labels(lbl, s8.shape[2:])[:, s8_rows]))
+            elif train_metrics == "s8" and s8 is not None:
+                cm = group.all_reduce_(confusion_matrix(
+                    s8[:half], downsample_labels(lbl[:half], s8.shape[2:])))
             else:
-                cm = confusion_matrix(outputs["logits"][:half], lbl[:half])
-            group.all_reduce_(cm)
+                cm = group.all_reduce_(confusion_matrix(outputs["logits"][:half],
+                                                        lbl[:half]))
             scalars = [total.detach()] + [v.detach().to(total.dtype)
                                           for v in terms.values()]
             group.mean_(scalars)

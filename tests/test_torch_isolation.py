@@ -377,11 +377,13 @@ import torch
 torch.set_num_threads(1)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel import spatial
 from miccai2021_cataract_semantic_segmentation_tpu_torch.tools import sharded_twins
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train import export
 from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import EvalSpec
-twins = sharded_twins.compare_sharded(backbone="resnet18", h=32, w=64, bs=4, n_pool=4,
-                                      n_steps=1, device="cpu")
+# the (1, 2) grid's arm and, beside it, one data rank's
+twins = sharded_twins.compare_sharded(backbone="resnet18", h=64, w=32, bs=2, n_pool=2,
+                                      n_steps=1, device="cpu", grid=(1, 2))
 serve = export.make_serving_fn(build_model({"model": "FCN", "width": 0.125}, 2,
                                            device="cpu"), EvalSpec(pad=True))
 x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 30, 40, 3),
@@ -393,7 +395,8 @@ with torch.no_grad():
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT
                 and sys.modules[m] is not None)
 print(json.dumps({"blocked": blocked, "twins": [twins["ranks"], twins["ranks_agree"],
-                            twins["losses_sharded"]],
+                            twins["losses_sharded"], twins["n_loss_shards"],
+                            twins["max_abs_grid_vs_data_ranks"], spatial.Grid.__name__],
                   "served": bool(torch.equal(got["pred"], want["pred"])),
                   "launches": {k: v.launches for k, v in KERNELS.items()},
                   "leaked": leaked}))
@@ -401,7 +404,8 @@ print(json.dumps({"blocked": blocked, "twins": [twins["ranks"], twins["ranks_agr
 
 
 def test_parallel_step_and_mesh_export_run_with_jax_blocked(tmp_path):
-    """A 2-rank train step (the sharded twins' arm; each rank a process of
+    """A train step over a (1, 2) grid of two ranks, one data rank's beside
+    it (the sharded twins' arms with `--grid 1,2`; each rank a process of
     its own, which loads the same blocking prelude as its sitecustomize)
     and the serving export over a mesh of two CPU devices."""
     (tmp_path / "sitecustomize.py").write_text(_SITECUSTOMIZE % (BLOCKED, CARD_ABSENT))
@@ -413,8 +417,9 @@ def test_parallel_step_and_mesh_export_run_with_jax_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["blocked"]
-    ranks, agree, losses = res["twins"]
-    assert ranks == 2 and agree and len(losses) == 1 and np.isfinite(losses[0])
+    ranks, agree, losses, data_ranks, grid_gap, grid_cls = res["twins"]
+    assert ranks == 2 and data_ranks == 1 and grid_cls == "Grid"
+    assert agree and len(losses) == 1 and np.isfinite(losses[0]) and grid_gap < 1e-5
     assert res["served"]
     assert res["launches"] == dict.fromkeys(KERNELS, 0)
     assert res["leaked"] == []
@@ -458,7 +463,8 @@ def _no_card():
                                    "make_eval_step", "make_eval_loss_step",
                                    "validate", "make_train_step", "train_steps",
                                    "Trainer", "main", "sharded_twins",
-                                   "trajectory_twins", "reproduce_paper"])
+                                   "sharded_twins_grid", "trajectory_twins",
+                                   "reproduce_paper"])
 def test_default_device_raises_without_cuda(entry):
     _no_card()
     spec = eval_spec(CONFIG["data"]["transforms"])
@@ -482,6 +488,8 @@ def test_default_device_raises_without_cuda(entry):
         "Trainer": lambda: Trainer(CONFIG),
         "main": lambda: main(["-c", str(ROOT / "configs" / "OCRNet_pretrained_t2.json")]),
         "sharded_twins": lambda: sharded_twins_main(["--tiny", "--steps", "1"]),
+        "sharded_twins_grid": lambda: sharded_twins_main(["--tiny", "--steps", "1",
+                                                          "--grid", "2,2"]),
         "trajectory_twins": lambda: trajectory_twins_main(["--cpu-scale", "--steps", "1"]),
         "reproduce_paper": lambda: reproduce_paper_main([
             "--data-root", str(ROOT / "data"), "--ckpt", "2=unread.pt"]),

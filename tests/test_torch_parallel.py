@@ -4,9 +4,9 @@ process.
 
 The port's side runs on two gloo ranks, each a process of its own with one
 intra-op thread and the port alone imported (parallel/launch.py, a
-FileStore in a temporary directory; tests/torch_parallel_jobs.py). Two
-module fixtures start them, and the JAX side compiles in this process
-while they run.
+FileStore in a temporary directory; tests/torch_parallel_jobs.py). One
+module fixture starts them for the steps and the Trainer, and the JAX
+side compiles in this process while they run.
 
 - Global BatchNorm: the two ranks' forward, input gradients, summed
   parameter gradients and running statistics equal one process's
@@ -157,12 +157,8 @@ def _bn_payload():
             "state": {k: v.clone() for k, v in bn.state_dict().items()}}
 
 
-@pytest.fixture(scope="module")
-def steps(tmp_path_factory):
-    """The JAX steps over a 2-device mesh and the port's over two ranks
-    (started first: they build their weights from the JAX side's numpy
-    fill, which needs no compile), and the port's one-process step."""
-    tmp = tmp_path_factory.mktemp("steps")
+def _steps_payload(tmp):
+    """The steps' payload (written to `tmp`) and what the JAX side needs."""
     flag_images, flag_labels = blocky(4, 64, 96, 8)
     semi_images, semi_labels = blocky(8, 48, 64, 6)
     # shard-blocked: each rank's block of 4 is [2 labelled | 2 unlabelled]
@@ -191,20 +187,48 @@ def steps(tmp_path_factory):
     path = tmp / "payload.pt"
     torch.save({"bn": _bn_payload(), "runs": ["flagship", "semi"],
                 "flagship": flagship, "semi": semi}, path)
-    ranks = Ranks("torch_parallel_jobs:steps_job", 2, path, paths=[TESTS])
-    try:
-        want = jax_mesh_step(R18, FLAGSHIP["loss"], flag_images, flag_labels, 2)
-        want_semi = jax_mesh_step(SEMI_GRAPH, SEMI_LOSS, semi_images, semi_labels, 5,
-                                  semi=SEMI)
-        # the same step in one process: the global batch's loss
-        model = build_model(R18, 2, device="cpu").double()
-        model.load_state_dict(flagship["state_dict"], strict=True)
-        single = sharded_twins.arm(model, cfg, flagship["batches"], 1, device="cpu",
-                                   draws=[draws])
-    finally:
-        got = ranks.results(timeout=240)
-    return {"got": got, "want": want, "want_semi": want_semi, "single": single,
+    return path, (flag_images, flag_labels, semi_images, semi_labels, cfg, flagship, draws)
+
+
+def _steps_jax_side(path, prep):
+    """The JAX steps over a 2-device mesh and the port's one-process step."""
+    flag_images, flag_labels, semi_images, semi_labels, cfg, flagship, draws = prep
+    want = jax_mesh_step(R18, FLAGSHIP["loss"], flag_images, flag_labels, 2)
+    want_semi = jax_mesh_step(SEMI_GRAPH, SEMI_LOSS, semi_images, semi_labels, 5, semi=SEMI)
+    # the same step in one process: the global batch's loss
+    model = build_model(R18, 2, device="cpu").double()
+    model.load_state_dict(flagship["state_dict"], strict=True)
+    single = sharded_twins.arm(model, cfg, flagship["batches"], 1, device="cpu",
+                               draws=[draws])
+    return {"want": want, "want_semi": want_semi, "single": single,
             "bn": torch.load(path, weights_only=False)["bn"]}
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """One set of two ranks for the steps and the Trainer at world 2
+    (started first: they build their weights from the JAX side's numpy
+    fill, which needs no compile), while the JAX side compiles its steps
+    over a 2-device mesh and the port's one-process step runs here."""
+    steps_path, prep = _steps_payload(tmp_path_factory.mktemp("steps"))
+    root, world2_path, payload = _world2_payload(tmp_path_factory.mktemp("world2"))
+    ranks = Ranks("torch_parallel_jobs:both_job", 2, f"{steps_path}|{world2_path}",
+                  paths=[TESTS])
+    try:
+        here = _steps_jax_side(steps_path, prep)
+        jax_semi = _jax_semi_batches(root, payload["semi"])
+    finally:
+        got = ranks.results(timeout=540)
+    return here, [r["steps"] for r in got], (root, payload, [r["world2"] for r in got],
+                                             jax_semi)
+
+
+@pytest.fixture(scope="module")
+def steps(both):
+    """The JAX steps over a 2-device mesh, the port's over two ranks and
+    the port's one-process step."""
+    here, got, _ = both
+    return {"got": got, **here}
 
 
 def test_global_batch_norm_equals_one_process(steps):
@@ -312,9 +336,7 @@ def _cfg(base, root, run_id, **changes):
     return cfg
 
 
-@pytest.fixture(scope="module")
-def world2(tmp_path_factory):
-    root = tmp_path_factory.mktemp("world2")
+def _world2_payload(root):
     write_frames(root / "data", n_train=8, n_valid=5, h=48, w=64)
     streams = _cfg(TRAINER, root, "streams", data=STREAMS,
                    train={"epochs": 5, "learning_rate": 1e-3})
@@ -328,12 +350,12 @@ def world2(tmp_path_factory):
         payload[key].pop("data_path", None)
     path = root / "payload.pt"
     torch.save(payload, path)
-    ranks = Ranks("torch_parallel_jobs:trainer_job", 2, path, paths=[TESTS])
-    try:
-        jax_semi = _jax_semi_batches(root, payload["semi"])
-    finally:
-        got = ranks.results(timeout=300)
-    return root, payload, got, jax_semi
+    return root, path, payload
+
+
+@pytest.fixture(scope="module")
+def world2(both):
+    return both[2]
 
 
 class _Writer:

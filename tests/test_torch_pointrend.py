@@ -18,6 +18,8 @@ the step's loss to 1e-5 and its gradients to 1e-5 relative L2 (its loss
 runs in float32 inside both), as tests/test_torch_upernet.py holds
 UPerNet's; the selected points and the rules exactly.
 """
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,15 +225,30 @@ def jax_pointrend():
     points its forward drew under the step's key."""
     images, labels = batch()
     spec = build_transform_pipeline(["pad"], {}, 2).device
-    with x64():
+    with x64(), concurrent.futures.ThreadPoolExecutor(2) as pool:
         model = jax_build_model(GRAPH, 2, dtype=jnp.float64)
         variables = numpy_variables(model, seed=6)
         x = np.random.default_rng(7).standard_normal((N_IMG, H, W, 3))
         # eagerly: under jit XLA contracts the f32 cell-centre arithmetic
         # (c / w + 0.5 / w, then c * w - 0.5) into fused multiply-adds,
         # which moves the float32 points by an ulp and the samples by ~4e-5;
-        # op by op JAX rounds each operation as the port does
-        want = np.asarray(model.apply(variables, jnp.asarray(x), False)["logits"])
+        # op by op JAX rounds each operation as the port does. It runs in a
+        # thread beside the train step's compile, as does the train-mode
+        # forward below
+        want = pool.submit(lambda: np.asarray(
+            model.apply(variables, jnp.asarray(x), False)["logits"]))
+        key = jax.random.PRNGKey(0)
+        # the step's own keys: fold_in(key, step 0), then aug / points / dropout
+        aug_key, points_key, dropout_key = jax.random.split(jax.random.fold_in(key, 0), 3)
+        xa, _ = jax_augment_batch(aug_key, jnp.asarray(images), jnp.asarray(labels),
+                                  spec, True)
+        # the points the step draws: a jitted train-mode forward under the
+        # step's keys (the step draws them under jit too)
+        coords = pool.submit(lambda: np.asarray(jax.jit(
+            lambda v, xa: model.apply(v, xa, True, mutable=["batch_stats"],
+                                      rngs={"points": points_key,
+                                            "dropout": dropout_key})[0]["point_coords"])(
+            variables, xa)))
         tx = jax_make_optimizer(CONFIG["train"], jlr.make_schedule(CONFIG["train"], 1))
         state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                               batch_stats=variables["batch_stats"],
@@ -240,19 +257,13 @@ def jax_pointrend():
         step = jax_steps.make_train_step(jax_build_loss(LOSS, 2), spec, 2,
                                          has_point_head=True, donate=False,
                                          train_metrics="full")
-        key = jax.random.PRNGKey(0)
         new_state, metrics = step(state, jnp.asarray(images), jnp.asarray(labels), key, 0)
-        # the step's own keys: fold_in(key, step 0), then aug / points / dropout
-        aug_key, points_key, dropout_key = jax.random.split(jax.random.fold_in(key, 0), 3)
-        xa, _ = jax_augment_batch(aug_key, jnp.asarray(images), jnp.asarray(labels),
-                                  spec, True)
-        out, _ = model.apply(variables, xa, True, mutable=["batch_stats"],
-                             rngs={"points": points_key, "dropout": dropout_key})
         train = {"metrics": jax.tree.map(np.asarray, metrics),
                  "grads": jax.tree.map(lambda m: np.asarray(m) / (1 - 0.9),
                                        new_state.opt_state[0].mu),
                  "stats": jax.tree.map(np.asarray, new_state.batch_stats),
-                 "coords": np.asarray(out["point_coords"])}
+                 "coords": coords.result()}
+        want = want.result()
     return variables, x, want, images, labels, train
 
 

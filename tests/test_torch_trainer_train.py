@@ -24,6 +24,7 @@ trace; the CLI without a device refuses a machine without CUDA.
 (c) A port run interrupted at epoch 2's validation and resumed from
 `last` through the CLI is bit-equal to the uninterrupted run on the CPU.
 """
+import concurrent.futures
 import json
 import pathlib
 
@@ -170,14 +171,23 @@ def trained(tree):
         assert init["conv1.weight"].dtype == torch.float64
         want = {"batches": [], "train": [], "valid": []}
         _recording(jt, want)
-        jt.train()
+        # the port's run in a thread, beside the JAX step's compile and run
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            port = pool.submit(_port_train, config, init)
+            jt.train()
+            got = port.result()
         want.update(global_step=jt.global_step, ind_counts=jt.ind_counts.copy(),
                     lr=[float(jt.schedule(s)) for s in range(jt.global_step + 1)],
                     params=bridge_hrnet(jax.tree.map(np.asarray, jt.state.params),
                                         jax.tree.map(np.asarray, jt.state.batch_stats)))
     finally:
         jax.config.update("jax_enable_x64", False)
+        mp.undo()
+    return init, want, got
 
+
+def _port_train(config, init) -> dict:
+    """The port's Trainer.train from the JAX Trainer's initial weights."""
     pt = Trainer(dict(config, run_id="port"), device="cpu")
     pt.model.double()          # in place: the optimiser keeps its parameters
     ckpt.load_model_state(pt.model, init)
@@ -187,11 +197,10 @@ def trained(tree):
     pt.train()
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
     pt.close()
-    mp.undo()
     got.update(global_step=pt.global_step, ind_counts=pt.ind_counts,
                lr=[pt.schedule(s) for s in range(pt.global_step + 1)],
                params=pt.model.state_dict(), trainer=pt)
-    return init, want, got
+    return got
 
 
 def test_train_batches_counts_steps_and_lr_equal_jax(trained):

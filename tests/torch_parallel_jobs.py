@@ -1,5 +1,5 @@
 """What tests/test_torch_parallel.py runs on two gloo ranks
-(parallel/launch.py:spawn). Each job takes the path of a `torch.save`d
+(parallel/launch.py:Ranks; `both_job`, one set of ranks for the file). Each job takes the path of a `torch.save`d
 payload and returns what the test compares; the module imports the port
 alone, so the ranks start without jax. Tensorboard is made absent in the
 ranks (the Trainer then logs scalars to scalars.jsonl), which spares each
@@ -154,3 +154,11 @@ def trainer_job(rank, world, path):
     out["semi"] = semi_batches(p["semi"], p["semi_epochs"])
     out["writes"] = writes.counts
     return out
+
+
+def both_job(rank, world, paths):
+    """`steps_job` and then `trainer_job` on the same ranks; `paths` is
+    their payloads' paths joined by "|"."""
+    steps_path, trainer_path = paths.split("|")
+    return {"steps": steps_job(rank, world, steps_path),
+            "world2": trainer_job(rank, world, trainer_path)}
