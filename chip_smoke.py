@@ -294,7 +294,13 @@ Phases (any failure raises and the run exits non-zero):
      one-process step's weights, its classes against one process's, held
      the same way; (d) rank 0 alone writes the checkpoint, both ranks
      restore it bit-equal; (e) one B1 and one B2 a rank in the step; (f)
-     a rank's peak memory at most GRID28_MEMORY_SHARE of one process's.
+     a rank's peak memory at most GRID28_MEMORY_SHARE of one process's;
+     (g) the other graphs the grid splits, float32 against one process at
+     batch GRID28_GRAPH_BATCH: the HRNetv2-W32 and DeepLabv3-R50 os8 train
+     steps held as (a) and (f) (one B3 and one B4f, one B1 and one B2 a
+     rank), the eval-loss steps of OCRNet on HRNet-W18 and DeepLabv3+-R50
+     (one B1 a rank) held as (c) and in their loss, each graph's step ms
+     and seconds inside gloo printed.
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -4927,8 +4933,41 @@ GRID28_PIXEL_FLOOR = 1e-4
 # (f) a rank's peak memory in the step over the one-process step's: the
 # trunk's activations, most of the step's memory at output stride 8, are
 # split in two; the weights, Adam's moments, the frames and the gathered
-# logits are not
+# logits are not. Each peak leaves out what the process held before the
+# step's model was built (`live_bytes`: earlier phases' leftovers)
 GRID28_MEMORY_SHARE = 0.8
+# (g) the other graphs the grid splits, each float32 (TF32 off) against
+# one process at GRID28_GRAPH_BATCH frames of 544 padded rows: train steps
+# of HRNetv2-W32 (its full-resolution bucket Lovász: B3, B4f) and
+# DeepLabv3-R50 os8 (the single-scale fused route: B1, B2; 34 rows a rank
+# at stride 8 under the ASPP's 36-row halo), held as (a) and to
+# GRID28_MEMORY_SHARE; eval-loss steps of OCRNet on HRNet-W18 (the
+# flagship's loss from stride 4: B1) and DeepLabv3+-R50 (B1), their loss
+# within GRID28_RATIO times what GRID28_NOISE moves it (floor
+# GRID28_LOSS_TOL) and their classes as (c)
+GRID28_GRAPH_BATCH = 2
+
+
+def grid28_graphs() -> dict:
+    """name -> (config, "train" or "eval_loss", the launches of a rank's
+    step) of phase 28(g)."""
+    with open(CONFIG) as f:
+        flagship = json.load(f)
+    return {
+        "HRNetv2-W32": (hrnet_config(), "train", {"bucket_hist": 1, "bucket_dlogits": 1}),
+        "DeepLabv3-R50": (deeplab_config(), "train", {"fu_hist": 1, "fu_grad": 1}),
+        "OCRNet-HRNet-W18": (dict(flagship, graph={"model": "OCRNet",
+                                                   "backbone": "hrnetv2_w18"}),
+                             "eval_loss", {"fu_hist": 1}),
+        "DeepLabv3+-R50": (deeplab_config({"model": "DeepLabv3Plus", "backbone": "resnet50",
+                                           "out_stride": 8}), "eval_loss", {"fu_hist": 1}),
+    }
+
+
+def live_bytes(dev) -> int:
+    """The bytes allocated on the card before a step's model is built
+    (what earlier work left in the process), which its peak leaves out."""
+    return torch.cuda.memory_allocated() if torch.device(dev).type == "cuda" else 0
 
 
 def noisy_(model, seed: int = 28) -> None:
@@ -5004,6 +5043,64 @@ def grid28_eval(cfg, dev, model, images, labels, group=None):
     return logits.argmax(1).to(torch.uint8).cpu(), cm.cpu()
 
 
+def grid28_graph(cfg, kind: str, dev, images, labels, group=None, noise: bool = False,
+                 timed: bool = False) -> dict:
+    """One phase-28(g) run of `cfg`'s graph, float32, over `group` (None:
+    one process): a train step from the seed-0 weights (moved by
+    GRID28_NOISE with `noise`) and its record, or an eval-loss step of
+    them and its loss, matrix and classes (this rank's rows); the step's
+    launches and peak memory; with `timed` its ms (CUDA events, median of
+    2) and, over a group, a step's seconds inside gloo's all-reduces."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
+        launch_counts, reset_launches)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.losses import build_loss
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models import build_model
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.train.steps import (
+        eval_spec, make_eval_loss_step)
+
+    task = int(cfg["data"]["experiment"])
+    base = live_bytes(dev)
+    if kind == "train":
+        model, state, step = grid28_step(cfg, dev, "fp32", group)
+        args = (state, images, labels, 0)
+    else:
+        model = build_model(cfg["graph"], task, device=dev, seed=0)
+        step = make_eval_loss_step(build_loss(cfg["loss"], task, dev),
+                                   eval_spec(cfg["data"]["transforms"]), device=dev,
+                                   precision="fp32", num_classes=17, group=group)
+        args = (model, images, labels, 0)
+    if noise:
+        noisy_(model)
+    cuda = torch.device(dev).type == "cuda"     # a CPU rehearsal measures nothing
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = step(*args)
+    if kind == "train":
+        rec = grid28_record(model, out)
+    else:
+        logits, _, cm, loss = out
+        rec = {"loss": float(loss), "cm": cm.cpu(),
+               "pred": logits.argmax(1).to(torch.uint8).cpu()}
+    rec["launches"] = launch_counts()
+    if cuda:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    if timed and cuda:
+        rec["ms"] = cuda_ms(lambda: step(*args), reps=2, warmup=1)
+        if group is not None:
+            with gloo_timer() as gt:
+                t = time.perf_counter()
+                step(*args)
+                torch.cuda.synchronize()
+                rec["timed_step_s"] = time.perf_counter() - t
+            rec["gloo_s"], rec["gloo_calls"] = gt.seconds, gt.calls
+    del model, step, args, out
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
 class gloo_timer:
     """Wall seconds inside `dist.all_reduce` for the block, the card
     synchronised before each call starts the clock and after it ends."""
@@ -5035,7 +5132,8 @@ def rank28(rank: int, world: int, payload: str) -> dict:
     memory counted, then its time, and a step with gloo's all-reduces
     timed; (b) a bf16 step from the same weights; (c) the eval step of (a)'s
     weights; (d) rank 0 saves (a)'s model and train state, both ranks
-    restore them into a fresh model and state."""
+    restore them into a fresh model and state; (g) the other graphs'
+    float32 steps (`grid28_graph`), each timed."""
     import torch.distributed as dist
 
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
@@ -5057,6 +5155,7 @@ def rank28(rank: int, world: int, payload: str) -> dict:
     images, labels = images[rows], labels[rows]
     out = {"grid": [grid.rank, list(grid.shape), grid.m]}
 
+    base = live_bytes(dev)
     model, state, step = grid28_step(cfg, dev, "fp32", grid)
     forward_end = forward_end_bytes(model)
     if dev.type == "cuda":
@@ -5066,8 +5165,8 @@ def rank28(rank: int, world: int, payload: str) -> dict:
     m = step(state, images, labels, 0)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-        out["peak_bytes"] = torch.cuda.max_memory_allocated()
-        out["forward_end_bytes"] = forward_end["bytes"]
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        out["forward_end_bytes"] = forward_end["bytes"] - base
     out["launches"] = launch_counts()
     out["f32"] = grid28_record(model, m)
     one = build_model(cfg["graph"], int(cfg["data"]["experiment"]), device=dev, seed=1)
@@ -5101,6 +5200,14 @@ def rank28(rank: int, world: int, payload: str) -> dict:
     model, state, step = grid28_step(cfg, dev, "bf16", grid)
     m = step(state, images, labels, 0)
     out["bf16"] = {"loss": float(m["loss"]), "cm": m["confusion_matrix"].cpu()}
+    del model, state, step, m
+    torch.cuda.empty_cache()
+    # (g) the other graphs, float32, TF32 off
+    images, labels = synthetic_set(n=GRID28_GRAPH_BATCH, h=p["h"], w=p["w"])
+    rows = grid.local_rows(GRID28_GRAPH_BATCH)
+    out["graphs"] = {name: grid28_graph(gcfg, kind, dev, images[rows], labels[rows], grid,
+                                        timed=True)
+                     for name, (gcfg, kind, _) in grid28_graphs().items()}
     return out
 
 
@@ -5126,6 +5233,7 @@ def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
         images, labels = synthetic_set(n=BATCH28, h=h, w=w)
         try:
             # one process: the float32 step, its peak memory and time; the eval
+            base = live_bytes(dev)
             model, state, step = grid28_step(cfg, dev, "fp32")
             forward_end = forward_end_bytes(model)
             torch.cuda.synchronize()
@@ -5133,8 +5241,8 @@ def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
             reset_launches()
             m = step(state, images, labels, 0)
             torch.cuda.synchronize()
-            one_peak = torch.cuda.max_memory_allocated()
-            one_forward_end = forward_end.get("bytes", 0)
+            one_peak = torch.cuda.max_memory_allocated() - base
+            one_forward_end = forward_end.get("bytes", base) - base
             one_launches = launch_counts()
             one = grid28_record(model, m)
             torch.save(model.state_dict(), tmp / "one.pt")
@@ -5153,6 +5261,13 @@ def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
             one_bf16 = {"loss": float(m["loss"]), "cm": m["confusion_matrix"].cpu()}
             del model, state, step, m
             torch.cuda.empty_cache()
+            # (g) each graph in one process, and from weights moved by noise
+            g_images, g_labels = synthetic_set(n=GRID28_GRAPH_BATCH, h=h, w=w)
+            graphs = grid28_graphs()
+            g_one = {name: grid28_graph(gcfg, kind, dev, g_images, g_labels, timed=True)
+                     for name, (gcfg, kind, _) in graphs.items()}
+            g_noise = {name: grid28_graph(gcfg, kind, dev, g_images, g_labels, noise=True)
+                       for name, (gcfg, kind, _) in graphs.items()}
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         t = time.perf_counter()
@@ -5234,11 +5349,81 @@ def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
               f"{one_forward_end / 2**30!r} GiB; card {smi}", flush=True)
         if max(mem) > GRID28_MEMORY_SHARE:
             bad.append(f"(f) a rank's peak memory share {mem}")
+        bad += grid28_graphs_held(graphs, [r["graphs"] for r in ranks], g_one, g_noise,
+                                  lr, smi)
         if bad:
             raise AssertionError("phase 28: " + "; ".join(bad))
-        return {k: sum(n[k] for n in launches) for k in ("fu_hist", "fu_grad")}
+        return {**{k: sum(n[k] for n in launches) for k in ("fu_hist", "fu_grad")},
+                "graphs": {name: {k: sum(r["graphs"][name]["launches"][k] for r in ranks)
+                                  for k in want} for name, (_, _, want) in graphs.items()}}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: float,
+                       smi: str) -> list:
+    """Phase 28(g)'s prints and gates: each graph's grid ranks (`ranks`,
+    their `grid28_graph` records by name) against its one-process run and
+    the one-process run from weights moved by noise; the failures."""
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
+
+    bad = []
+    for name, (_, kind, want) in graphs.items():
+        got = [r[name] for r in ranks]
+        want = dict(dict.fromkeys(KERNELS, 0), **want)
+        launches = [g["launches"] for g in got]
+        if any(n != want for n in launches) or one[name]["launches"] != want:
+            bad.append(f"(g) {name}: launches {launches}, one process "
+                       f"{one[name]['launches']} (want {want})")
+        if kind == "train":
+            far = step_distance(got[0], one[name], lr)
+            ref = step_distance(noise[name], one[name], lr)
+            gates = {k: max(GRID28_RATIO * ref[k], f) for k, f in GRID28_FLOOR.items()}
+            equal = all(torch.equal(g["sd"][k], got[0]["sd"][k]) for g in got[1:]
+                        for k in got[0]["sd"]) and all(g["scalars"] == got[0]["scalars"]
+                                                       for g in got)
+            one_peak = one[name].get("peak_bytes", 0)      # 0 in a CPU rehearsal
+            mem = [g.get("peak_bytes", 0) / max(one_peak, 1) for g in got]
+            print(f"28(g) {name} on the (1, 2) grid, float32 step (TF32 off), batch "
+                  f"{GRID28_GRAPH_BATCH}, against one process: {json.dumps(far)}; the "
+                  f"noise's {json.dumps(ref)}; gates {json.dumps(gates)}, loss "
+                  f"{GRID28_LOSS_TOL}, params within 2 lr; ranks equal {equal}; "
+                  f"scalars {got[0]['scalars']} against {one[name]['scalars']}; launches "
+                  f"a rank {launches}; peak memory ranks "
+                  f"{[g.get('peak_bytes', 0) / 2**30 for g in got]} GiB, one process "
+                  f"{one_peak / 2**30!r} GiB, shares {mem} (gate "
+                  f"{GRID28_MEMORY_SHARE}); card {smi}", flush=True)
+            if any(far[k] > g for k, g in gates.items()) or far["loss"] > GRID28_LOSS_TOL \
+                    or far["params_max_over_lr"] > 2.0 + 1e-3 or not equal:
+                bad.append(f"(g) {name}'s float32 step against one process: {far}")
+            if max(mem) > GRID28_MEMORY_SHARE:
+                bad.append(f"(g) {name}: a rank's peak memory share {mem}")
+        else:
+            pred = torch.cat([g["pred"] for g in got], dim=1)
+            share = float((pred != one[name]["pred"]).double().mean())
+            noise_share = float((noise[name]["pred"] != one[name]["pred"]).double().mean())
+            d_loss = abs(got[0]["loss"] - one[name]["loss"])
+            loss_gate = max(GRID28_RATIO * abs(noise[name]["loss"] - one[name]["loss"]),
+                            GRID28_LOSS_TOL)
+            pixel_gate = max(GRID28_RATIO * noise_share, GRID28_PIXEL_FLOOR)
+            print(f"28(g) {name}'s eval-loss step (float32) on the (1, 2) grid, batch "
+                  f"{GRID28_GRAPH_BATCH}, against one process: loss {got[0]['loss']!r} "
+                  f"against {one[name]['loss']!r} (difference {d_loss!r}, gate "
+                  f"{loss_gate!r}); the share of {pred.numel()} pixels in another class "
+                  f"{share!r} (noise {noise_share!r}, gate {pixel_gate!r}); launches a "
+                  f"rank {launches}; card {smi}", flush=True)
+            if pred.shape != one[name]["pred"].shape or share > pixel_gate or \
+                    d_loss > loss_gate or any(g["loss"] != got[0]["loss"] for g in got) or \
+                    any(not torch.equal(g["cm"], got[0]["cm"]) for g in got) or \
+                    int(got[0]["cm"].sum()) != int(one[name]["cm"].sum()):
+                bad.append(f"(g) {name}'s eval-loss step: loss {d_loss}, share {share}")
+        print(f"28(g) {name} step times (CUDA events, median of 2, TF32 off): one process "
+              f"{one[name].get('ms')!r} ms; grid ranks {[g.get('ms') for g in got]} ms (both on "
+              f"one card); a step with the all-reduces timed: "
+              f"{[g.get('timed_step_s') for g in got]} s, of it inside gloo's all-reduces "
+              f"{[g.get('gloo_s') for g in got]} s over {[g.get('gloo_calls') for g in got]} "
+              f"calls; card {smi}", flush=True)
+    return bad
 
 
 def main() -> int:
@@ -5330,6 +5515,11 @@ def main() -> int:
     b1["twins_launches"], b2["twins_launches"] = twins["fu_hist"], twins["fu_grad"]
     grid = phase(28, phase28_spatial, dev)
     b1["grid_launches"], b2["grid_launches"] = grid["fu_hist"], grid["fu_grad"]
+    # phase 28(g): each graph's step summed over the two ranks
+    for rec, key in ((b1, "fu_hist"), (b2, "fu_grad"), (b3, "bucket_hist"),
+                     (b4f, "bucket_dlogits")):
+        rec["grid_graph_launches"] = {name: n[key] for name, n in grid["graphs"].items()
+                                      if n.get(key)}
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -5382,7 +5572,8 @@ def main() -> int:
           f"{twins['fu_grad']}, 'twins_launches'; 0 on the sort twin, reproduce_paper "
           "and the data tools), over the (1, 2) spatial grid's float32 step (phase 28: "
           f"B1/B2 {grid['fu_hist']}/{grid['fu_grad']} summed over the two ranks, "
-          "'grid_launches') "
+          "'grid_launches'; the other graphs' steps on the grid, summed over the ranks, "
+          f"{json.dumps(grid['graphs'])}, 'grid_graph_launches') "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

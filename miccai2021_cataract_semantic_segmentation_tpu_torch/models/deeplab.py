@@ -19,6 +19,15 @@ at out_stride 8, stride 4 for v3+ whatever the name says), `deep_features`
 (layer 4), `logits` (the align_corners=True upsample to the input size)
 when `full_res` asks for it, and with a `projector` section
 `proj_features`, the projection head (models/projector.py) on layer 4.
+
+Under a spatial grid (parallel/spatial.py, `grid`) the backbone, the ASPP
+and the decoder work on this rank's band of rows: the dilated 3x3s read
+halos from as many ranks as their dilation spans, the image pool sums the
+bands over the model ranks (`global_avg_pool`) and its broadcast is the
+band's rows of the whole one, the decoder's align_corners=True upsample
+reads the source rows its band needs (`upsample_like`); the forward gives
+the band of `logits_s8` and no full-resolution output (the steps read it
+whole: `BAND_OUTPUTS`).
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
-    batch_norm, global_avg_pool, to_f32, upsample_like)
+    Conv2d, batch_norm, global_avg_pool, to_f32, upsample_like)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.projector import (
     build_projector)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
@@ -43,12 +52,14 @@ def dilate_stages(out_stride: int) -> tuple[bool, bool, bool]:
             32: (True, True, True)}[out_stride]
 
 
-def _conv(c_in: int, c_out: int, k: int, dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, k, padding=dilation * (k // 2),
-                     dilation=dilation, bias=False)
+def _conv(c_in: int, c_out: int, k: int, dilation: int = 1) -> Conv2d:
+    return Conv2d(c_in, c_out, k, padding=dilation * (k // 2),
+                  dilation=dilation, bias=False)
 
 
 class ASPP(nn.Module):
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+
     def __init__(self, c_in: int, c_aspp: int = 256, mult: int = 1):
         super().__init__()
         self.aspp1 = _conv(c_in, c_aspp, 1)
@@ -66,7 +77,9 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [self._branch(i, x) for i in range(1, 5)]
-        pooled = self._branch(5, global_avg_pool(x))
+        pooled = self._branch(5, global_avg_pool(x, self.grid))
+        # from one row every output row is that row: the band's rows of the
+        # whole broadcast, whether the model ranks split the rows or not
         branches.append(upsample_like(pooled, x.shape[2:], align_corners=True))
         return self.relu(self.bn2(self.conv2(torch.cat(branches, dim=1))))
 
@@ -74,6 +87,8 @@ class ASPP(nn.Module):
 class Decoder(nn.Module):
     """DeepLabv3+'s decoder: the layer-1 lateral, two 3x3 convolutions and
     the classifier."""
+
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
 
     def __init__(self, c_low: int, c_aspp: int, num_classes: int,
                  c_low_reduced: int = 48, c_decoder: int = 256):
@@ -89,7 +104,7 @@ class Decoder(nn.Module):
 
     def forward(self, y: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
         lateral = self.relu(self.conv_low_bn(self.conv_low(low)))
-        y = upsample_like(y, low.shape[2:], align_corners=True)
+        y = upsample_like(y, low.shape[2:], align_corners=True, grid=self.grid)
         y = torch.cat([lateral, y], dim=1)
         y = self.relu(self.conv_3x3_1_bn(self.conv_3x3_1(y)))
         y = self.relu(self.conv_3x3_2_bn(self.conv_3x3_2(y)))
@@ -98,6 +113,12 @@ class Decoder(nn.Module):
 
 class _DeepLab(nn.Module):
     """The dilated backbone and the ASPP; a subclass adds its head."""
+
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+    # under a spatial grid: the band output whose whole upsample is each
+    # full-resolution output, and the upsample's convention
+    BAND_OUTPUTS = {"logits": "logits_s8"}
+    ALIGN_CORNERS = True
 
     def __init__(self, backbone: str, out_stride: int, c_aspp: int,
                  projector: dict | None):
@@ -112,7 +133,11 @@ class _DeepLab(nn.Module):
         """NCHW input -> output dict (NCHW, >= f32 logits). `full_res`
         names the full-size upsamples to compute (`logits` or none): a
         train step whose loss and metric read `logits_s8` leaves it out,
-        as XLA drops it from the JAX program."""
+        as XLA drops it from the JAX program. Under a spatial grid
+        `full_res` must be empty."""
+        if self.grid is not None and full_res:
+            raise ValueError(f"under the spatial grid the forward gives no "
+                             f"full-resolution output, not {full_res}")
         feats = self.backbone(x)
         logits = self.head(feats)
         out = {"logits_s8": to_f32(logits), "deep_features": feats["layer4"]}

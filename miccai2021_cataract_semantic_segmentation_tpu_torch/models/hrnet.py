@@ -4,9 +4,18 @@ Port of the JAX package's models/hrnet.py. Four stages of parallel
 multi-resolution branches with full cross-resolution fusion after each
 module; branch widths (w, 2w, 4w, 8w), BasicBlocks after the Bottleneck
 stem stage, BatchNorm at torch momentum 0.01 (flax 0.99). Every fuse and
-head upsample is bilinear with align_corners=False. The forward always
-returns full-resolution `logits` and nothing at stride 8, so the losses
-take their full-resolution routes.
+head upsample is bilinear with align_corners=False. The forward returns
+full-resolution `logits` and nothing at stride 8, so the losses take
+their full-resolution routes.
+
+Under a spatial grid (parallel/spatial.py, `grid`) every branch holds this
+rank's band of its rows: the convolutions are models/layers.py's `Conv2d`
+(the strided fuse chains on bands of any height), the fuse layers'
+upsamples and the head's concatenation read the source rows their band
+needs from the other ranks (`upsample_like`), and `HRNetv2`'s forward
+gives its band of the stride-4 logits as `logits_s4` and no
+full-resolution output: the steps gather them whole and upsample them
+with align_corners=False (`BAND_OUTPUTS`, `ALIGN_CORNERS`).
 
 Modules carry the reference's torch state-dict names, which the JAX
 package's train/port_torch.py:port_hrnet maps from: `conv1`/`bn1`,
@@ -25,7 +34,7 @@ from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
-    batch_norm, to_f32, upsample_like)
+    Conv2d, batch_norm, to_f32, upsample_like)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.resnet import (
     BasicBlock, Bottleneck)
 
@@ -35,8 +44,8 @@ BN_MOMENTUM = 0.01  # torch momentum of the reference's HRNet (flax 0.99)
 def _conv_bn(in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
              relu: bool = True, bias: bool = False) -> nn.Sequential:
     """Sequential(conv, bn[, relu]): the reference's keys `.0` and `.1`."""
-    mods = [nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
-                      padding=kernel // 2, bias=bias),
+    mods = [Conv2d(in_ch, out_ch, kernel, stride=stride,
+                   padding=kernel // 2, bias=bias),
             batch_norm(out_ch, BN_MOMENTUM)]
     if relu:
         mods.append(nn.ReLU(inplace=True))
@@ -56,6 +65,8 @@ def _branch(in_ch: int, width: int, num_blocks: int = 4) -> nn.Sequential:
 class _FuseModule(nn.Module):
     """One HighResolutionModule: per-branch blocks then full fusion
     (HRNetv2.py:116-260)."""
+
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
 
     def __init__(self, widths: Sequence[int]):
         super().__init__()
@@ -88,7 +99,7 @@ class _FuseModule(nn.Module):
                     z = xs[j]
                 elif j > i:
                     z = upsample_like(layer(xs[j]), xs[i].shape[2:],
-                                      align_corners=False)
+                                      align_corners=False, grid=self.grid)
                 else:
                     z = layer(xs[j])
                 y = z if y is None else y + z
@@ -102,14 +113,16 @@ class HRNetTrunk(nn.Module):
     `hrnet_trunk`). A graph on HRNet subclasses it, so the trunk's modules
     keep their reference names at the graph's top level."""
 
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+
     def __init__(self, width: int = 32):
         super().__init__()
         widths = [width, 2 * width, 4 * width, 8 * width]
         self.widths = widths
         # stem: two strided 3x3 convs (stride 4 in all)
-        self.conv1 = nn.Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
+        self.conv1 = Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
         self.bn1 = batch_norm(64, BN_MOMENTUM)
-        self.conv2 = nn.Conv2d(64, 64, 3, stride=2, padding=1, bias=False)
+        self.conv2 = Conv2d(64, 64, 3, stride=2, padding=1, bias=False)
         self.bn2 = batch_norm(64, BN_MOMENTUM)
         self.relu = nn.ReLU(inplace=True)
         # stage 1: 4 Bottlenecks of `width` planes (4 * width channels)
@@ -144,14 +157,20 @@ class HRNetTrunk(nn.Module):
         return xs
 
 
-def hrnet_concat(xs: list, align_corners: bool = False) -> torch.Tensor:
-    """Concat all branches at 1/4 resolution (HRNetv2.py:505-513)."""
+def hrnet_concat(xs: list, align_corners: bool = False, grid=None) -> torch.Tensor:
+    """Concat all branches at 1/4 resolution (HRNetv2.py:505-513); under a
+    spatial `grid`, this rank's band of it."""
     hw = xs[0].shape[2:]
-    return torch.cat([xs[0]] + [upsample_like(z, hw, align_corners=align_corners)
+    return torch.cat([xs[0]] + [upsample_like(z, hw, align_corners=align_corners, grid=grid)
                                 for z in xs[1:]], dim=1)
 
 
 class HRNetv2(HRNetTrunk):
+    # under a spatial grid: the band output whose whole upsample is each
+    # full-resolution output, and the upsample's convention
+    BAND_OUTPUTS = {"logits": "logits_s4"}
+    ALIGN_CORNERS = False
+
     def __init__(self, task: int = 2, width: int = 32):
         super().__init__(width)
         num_classes = taxonomy.TASK_NUM_CLASSES[task]
@@ -164,7 +183,11 @@ class HRNetv2(HRNetTrunk):
             nn.Conv2d(total, num_classes, 1, bias=True))
 
     def forward(self, x: torch.Tensor) -> dict:
-        """NCHW input -> {"logits": NCHW >= f32 logits at input size}."""
-        y = self.last_layer(hrnet_concat(super().forward(x)))
+        """NCHW input -> {"logits": NCHW >= f32 logits at input size}; under
+        a spatial grid {"logits_s4": this rank's band of the stride-4
+        logits}."""
+        y = self.last_layer(hrnet_concat(super().forward(x), grid=self.grid))
+        if self.grid is not None:
+            return {"logits_s4": to_f32(y)}
         return {"logits": to_f32(upsample_like(y, x.shape[2:],
                                                align_corners=False))}

@@ -7,7 +7,8 @@ its running variance in train mode with the biased batch variance, as
 flax does (`BatchNorm2d`). Modules keep the reference's torch state-dict
 names, so a published checkpoint loads with `load_state_dict(strict=True)`.
 `Conv2d` and `MaxPool2d` are torch's, which under a spatial grid
-(parallel/spatial.py, `grid`) work on this rank's band of rows.
+(parallel/spatial.py, `grid`) work on this rank's band of rows, as do
+`upsample_like` and `global_avg_pool` given the grid.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import (
+    interp_matrix, resize_bilinear, resize_rows)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -37,48 +39,48 @@ def to_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(acc_dtype(x))
 
 
-def halo(kernel: int, stride: int, padding: int, dilation: int) -> tuple[int, int]:
-    """The rows above and below a band of rows that a window op reads to
-    give the band's output rows (the band's row count divides by `stride`):
-    `padding` above, dilation (kernel - 1) - padding - stride + 1 below."""
-    return padding, max(0, dilation * (kernel - 1) - padding - stride + 1)
-
-
 def _pair(v) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
 def band_forward(module: nn.Module, x: torch.Tensor, fill: float, op) -> torch.Tensor:
     """`op(rows)` of this rank's band `x` of a window op's input (kernel,
-    stride, padding and dilation from `module`, the height's padding
-    replaced by the neighbours' rows and `fill` beyond the image): the
-    band's output rows. A band whose rows the stride does not divide, or
-    that holds fewer rows than a halo, raises ValueError naming the layer."""
+    stride, padding and dilation from `module`; the height's padding
+    replaced by the rows the band's windows read, from whichever ranks own
+    them, and `fill` beyond the image): this rank's band of the output
+    (parallel/spatial.py: the rows whose window centre lies in its input
+    band). A window that is not centred, or a stride that leaves a model
+    rank no rows, raises ValueError naming the layer."""
     k, s = _pair(module.kernel_size)[0], _pair(module.stride)[0]
     p, d = _pair(module.padding)[0], _pair(module.dilation)[0]
-    r = x.shape[2]
-    top, bottom = halo(k, s, p, d)
-    if r % s or max(top, bottom) > r:
+    grid, span = module.grid, d * (k - 1)
+    stride, bands = grid.band_of(x, module.site)
+    out = grid.bands(stride * s)
+    if 2 * p != span or any(hi <= lo for lo, hi in out):
         raise ValueError(
-            f"{module.site}: a band of {r} rows a rank (grid {module.grid.shape}) "
-            f"does not fit a {k}x{k} window at stride {s}, dilation {d} (halo "
-            f"{top} above, {bottom} below): each rank's rows must divide by the "
-            f"stride and hold the halo")
-    if top or bottom:
-        x = module.grid.exchange_halo(x, top, bottom, fill)
-    return op(x)[:, :, :r // s]
+            f"{module.site}: the {k}x{k} window at stride {s}, dilation {d}, padding "
+            f"{p} does not split over the grid {grid.shape}: its bands of the "
+            f"{grid.frame} frame's rows would be {out} at stride {stride * s}; the "
+            f"grid takes centred windows (padding d(k-1)/2) and bands of a row or more")
+    # the rows the band's windows span; at least down to the band's end,
+    # which completes no further window and keeps the op's input whole
+    needs = [(s * lo - p, max(s * (hi - 1) - p + span + 1, band[1]))
+             for (lo, hi), band in zip(out, bands)]
+    return op(grid.fetch_rows(x, bands, needs, fill))
 
 
 class Conv2d(nn.Conv2d):
     """`nn.Conv2d`; under a spatial grid (`grid`, which
     parallel/spatial.py:`spatial_rows` sets for a block, `site` its name)
-    it convolves this rank's band of rows, the height's zero padding
-    replaced by the neighbours' rows inside the image."""
+    a window taller than a row, or a strided one, convolves this rank's
+    band of rows, the height's zero padding replaced by the rows its
+    windows read from the other ranks; a pointwise one (1x1, stride 1)
+    works on any rows as they are."""
 
     grid = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.grid is None:
+        if self.grid is None or (self.kernel_size[0], self.stride[0]) == (1, 1):
             return super().forward(x)
         return band_forward(self, x, 0.0, lambda e: F.conv2d(
             e, self.weight, self.bias, self.stride, (0, self.padding[1]),
@@ -228,15 +230,40 @@ class ConvBN(nn.Sequential):
             nn.ReLU(inplace=True))
 
 
-def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+def global_avg_pool(x: torch.Tensor, grid=None) -> torch.Tensor:
     """AdaptiveAvgPool2d(1) -> (N, C, 1, 1), averaged in >= f32 and returned
-    in `x.dtype`, as the JAX package's `global_avg_pool`."""
-    return x.to(acc_dtype(x)).mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    in `x.dtype`, as the JAX package's `global_avg_pool`. Under a spatial
+    `grid` `x` is this rank's band: its sum summed over the model ranks
+    (with gradient) over the whole activation's count, the same on every
+    model rank."""
+    acc = acc_dtype(x)
+    if grid is None:
+        return x.to(acc).mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    _, bands = grid.band_of(x)
+    total = grid.model_sum(x.to(acc).sum(dim=(2, 3), keepdim=True))
+    return (total / (bands[-1][1] * x.shape[3])).to(x.dtype)
 
 
 def upsample_like(x: torch.Tensor, ref_hw: tuple[int, int],
-                  align_corners: bool = True) -> torch.Tensor:
-    return resize_bilinear(x, ref_hw, align_corners=align_corners)
+                  align_corners: bool = True, grid=None) -> torch.Tensor:
+    """Bilinear resize of NCHW `x` to `ref_hw`. Under a spatial `grid` `x`
+    is this rank's band of an activation and `ref_hw` the target band's
+    size: the band's rows of the whole resize, rows of the global
+    interpolation matrix over the source rows they read, fetched from the
+    ranks that own them (`Grid.fetch_rows`, whose backward returns their
+    gradients)."""
+    if grid is None:
+        return resize_bilinear(x, ref_hw, align_corners=align_corners)
+    _, src = grid.band_of(x)
+    dst = grid.bands(grid.stride_of(ref_hw[1]))
+    mh = interp_matrix(src[-1][1], dst[-1][1], align_corners)
+    needs = []
+    for lo, hi in dst:
+        cols = np.flatnonzero((mh[lo:hi] != 0).any(axis=0))
+        needs.append((int(cols[0]), int(cols[-1]) + 1))
+    (lo, hi), (a, b) = dst[grid.m], needs[grid.m]
+    return resize_rows(grid.fetch_rows(x, src, needs, 0.0), mh[lo:hi, a:b],
+                       ref_hw[1], align_corners)
 
 
 def _pool_matrix(n_in: int, n_out: int) -> np.ndarray:

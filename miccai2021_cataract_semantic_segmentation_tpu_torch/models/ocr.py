@@ -23,12 +23,15 @@ leaves this combination unimplemented and has no checkpoint for it.
 The gather and attention products run with autocast off in >= f32, as the
 JAX graph accumulates them, and leave in the features' dtype.
 
-Under a spatial grid (parallel/spatial.py, `grid`) the trunk, the
+Under a spatial grid (parallel/spatial.py, `grid`) the trunk (a ResNet,
+or HRNet with its fuse layers and concatenation on bands), the
 soft-region head and `conv_high_map` work on this rank's band of rows;
 the spatial gather's softmax and products run over the whole image
 through the model ranks' sums; the object attention is per pixel and
-stays local; the forward gives the stride-8 logits of the band and no
-full-resolution output (the steps read the stride-8 logits whole).
+stays local; the forward gives the band of `logits_s8` and
+`interm_logits_s8` (stride 8 on a dilated ResNet, stride 4 on HRNet,
+whatever the names say) and no full-resolution output: the steps read
+them whole (`BAND_OUTPUTS`).
 """
 from __future__ import annotations
 
@@ -144,6 +147,10 @@ def hrnet_width(backbone: str) -> int:
 
 class OCRNet(nn.Module):
     grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+    # under a spatial grid: the band output whose whole upsample is each
+    # full-resolution output, and the upsample's convention
+    BAND_OUTPUTS = {"logits": "logits_s8", "interm_logits": "interm_logits_s8"}
+    ALIGN_CORNERS = True
 
     def __init__(self, task: int = 2, backbone: str = "resnet50",
                  out_stride: int = 8, dropout: float = 0.0,
@@ -186,7 +193,7 @@ class OCRNet(nn.Module):
             raise ValueError(f"under the spatial grid the forward gives no "
                              f"full-resolution output, not {full_res}")
         if self.on_hrnet:
-            low = high = hrnet_concat(self.backbone(x))
+            low = high = hrnet_concat(self.backbone(x), grid=self.grid)
         else:
             feats = self.backbone(x)
             low, high = feats["layer3"], feats["layer4"]

@@ -52,6 +52,15 @@ def _interp(n_in: int, n_out: int, align_corners: bool, dtype: torch.dtype,
     return _interp_tensor(n_in, n_out, align_corners, dtype, device)
 
 
+def _apply(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
+    """`mh @ x @ mw.T` over NCHW `x` in the matrices' dtype (>= float32)
+    with autocast off, returned in `x.dtype`."""
+    with torch.autocast(x.device.type, enabled=False):
+        y = torch.matmul(mh, x.to(mh.dtype))         # (N, C, out_h, w)
+        y = torch.matmul(y, mw.t())                  # (N, C, out_h, out_w)
+    return y.to(x.dtype)
+
+
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
                     align_corners: bool = True) -> torch.Tensor:
     """Bilinear-resize NCHW `x` to spatial `size` = (H, W).
@@ -64,9 +73,16 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
     if (h, w) == (out_h, out_w):
         return x
     acc = torch.promote_types(x.dtype, torch.float32)
-    mh = _interp(h, out_h, align_corners, acc, x.device)
-    mw = _interp(w, out_w, align_corners, acc, x.device)
-    with torch.autocast(x.device.type, enabled=False):
-        y = torch.matmul(mh, x.to(acc))              # (N, C, out_h, w)
-        y = torch.matmul(y, mw.t())                  # (N, C, out_h, out_w)
-    return y.to(x.dtype)
+    return _apply(x, _interp(h, out_h, align_corners, acc, x.device),
+                  _interp(w, out_w, align_corners, acc, x.device))
+
+
+def resize_rows(x: torch.Tensor, mh: np.ndarray, out_w: int,
+                align_corners: bool) -> torch.Tensor:
+    """`resize_bilinear` of NCHW `x` with the (out_h, h) float64 height
+    matrix `mh` in place of the interpolation's (some rows of a global
+    matrix, over the source rows they read) and the width's to `out_w`;
+    returns `x.dtype`."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return _apply(x, torch.as_tensor(mh, dtype=acc, device=x.device),
+                  _interp(x.shape[3], out_w, align_corners, acc, x.device))

@@ -38,7 +38,7 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.metrics import conf
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.misc import (
     clipped_argmax, downsample_labels)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.ops.resize import (
-    interp_matrix, resize_bilinear)
+    interp_matrix, resize_bilinear, resize_rows)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
     DataGroup, global_batch_norm)
 from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.spatial import (
@@ -117,38 +117,50 @@ def _spatial_grid(group) -> Grid | None:
     return group if isinstance(group, Grid) and group.spatial else None
 
 
-def band_logits(s8: torch.Tensor, out_hw: tuple[int, int], rows: slice) -> torch.Tensor:
-    """The `rows` of the align_corners upsample of whole stride-8 logits
-    `s8` to `out_hw` (ops/resize.py's matrices: its rows of the height's,
-    then the width's), at least float32."""
-    acc = torch.promote_types(s8.dtype, torch.float32)
-    mh = torch.as_tensor(interp_matrix(s8.shape[2], out_hw[0], True)[rows], dtype=acc,
-                         device=s8.device)
-    mw = torch.as_tensor(interp_matrix(s8.shape[3], out_hw[1], True), dtype=acc,
-                         device=s8.device)
-    with torch.autocast(s8.device.type, enabled=False):
-        return torch.matmul(torch.matmul(mh, s8.to(acc)), mw.t())
+def band_logits(low: torch.Tensor, out_hw: tuple[int, int], rows: slice,
+                align_corners: bool = True) -> torch.Tensor:
+    """The `rows` of the bilinear upsample of whole low-resolution logits
+    `low` to `out_hw` at `align_corners` (ops/resize.py's matrices: its
+    rows of the height's, then the width's), at least float32."""
+    mh = interp_matrix(low.shape[2], out_hw[0], align_corners)[rows]
+    return resize_rows(low.to(torch.promote_types(low.dtype, torch.float32)), mh,
+                       out_hw[1], align_corners)
 
 
-def _spatial_eval(model, x, lbl, precision, grid: Grid):
+def _upsampled(model, whole: dict, frame, precision: str, key: str = "logits",
+               rows: slice = slice(None)) -> torch.Tensor:
+    """The `rows` of full-resolution output `key` of a forward on the grid:
+    the upsample of its whole band output (the model's `BAND_OUTPUTS`) at
+    the model's `ALIGN_CORNERS`, rounded to bf16 under "bf16" as the
+    model's own upsample leaves it."""
+    y = band_logits(whole[model.BAND_OUTPUTS[key]], tuple(frame), rows, model.ALIGN_CORNERS)
+    return y.to(torch.bfloat16).to(y.dtype) if precision == "bf16" else y
+
+
+def _whole(model, outputs: dict, grid: Grid, frame, precision: str, full_res=()) -> dict:
+    """`outputs` of a forward on the grid with its band outputs gathered
+    whole (`BAND_OUTPUTS`) and the full-resolution outputs `full_res`
+    upsampled whole from them, as JAX's `_sharded_loss` hands each device
+    the logits whole over 'model'. A model whose forward takes no
+    `full_res` gives all of them, as it does in one process (`_forward`)."""
+    if "full_res" not in inspect.signature(model.forward).parameters:
+        full_res = tuple(model.BAND_OUTPUTS)
+    out = {**outputs, **{k: grid.gather_rows(outputs[k])
+                         for k in model.BAND_OUTPUTS.values() if k in outputs}}
+    out.update({k: _upsampled(model, out, frame, precision, k) for k in full_res})
+    return out
+
+
+def _spatial_eval(model, x, lbl, precision, grid: Grid, full_res=()):
     """An eval-mode forward of this rank's band of `x` on the grid: the
-    outputs with the stride-8 logits whole, this rank's rows of the
-    full-resolution logits (rounded to bf16 under "bf16", as the model's
-    own upsample leaves them) and of the labels."""
-    rows = grid.rows(x.shape[2])
-    with spatial_rows(model, grid):
+    outputs with the band outputs whole and `full_res` upsampled whole,
+    this rank's rows of the full-resolution logits and of the labels."""
+    frame = tuple(x.shape[2:])
+    rows = grid.rows(frame[0])
+    with spatial_rows(model, grid, frame) as framed:
         outputs = _forward(model, x[:, :, rows].contiguous(), precision, ())
-    outputs = _gathered(outputs, grid)
-    logits = band_logits(outputs["logits_s8"], tuple(x.shape[2:]), rows)
-    if precision == "bf16":
-        logits = logits.to(torch.bfloat16).to(logits.dtype)
-    return outputs, logits, lbl[:, rows]
-
-
-def _gathered(outputs: dict, grid: Grid) -> dict:
-    """`outputs` with both stride-8 logit maps gathered whole."""
-    return {**outputs, **{k: grid.gather_rows(outputs[k])
-                          for k in ("logits_s8", "interm_logits_s8")}}
+    outputs = _whole(model, outputs, framed, frame, precision, full_res)
+    return outputs, _upsampled(model, outputs, frame, precision, rows=rows), lbl[:, rows]
 
 
 def make_eval_step(spec: EvalSpec | None, num_classes: int,
@@ -158,9 +170,10 @@ def make_eval_step(spec: EvalSpec | None, num_classes: int,
 
     Over a spatial grid (`group`) the images and labels are this rank's
     data shard of the global batch; each model rank runs its band of rows,
-    gathers the stride-8 logits and computes its rows of the
-    full-resolution logits (`band_logits`), which it returns with its rows
-    of the labels; the matrix is summed over the grid (the global batch's)."""
+    gathers the low-resolution logits (the graph's `BAND_OUTPUTS`) and
+    computes its rows of the full-resolution logits (`band_logits`, at the
+    graph's `ALIGN_CORNERS`), which it returns with its rows of the labels;
+    the matrix is summed over the grid (the global batch's)."""
     dev = resolve_device(device)
     grid = _spatial_grid(group)
 
@@ -233,13 +246,11 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
     `num_classes` classes where given (the eval step's: a UNet's extra
     ignore channel is left out, as the eval step leaves it out), else the
     logits' channels. Over a spatial grid (`group`), as the eval step; the
-    loss is each data shard's, from the gathered stride-8 logits and the
-    shard's labels, averaged over the data ranks."""
+    loss is each data shard's, from the gathered low-resolution logits (and
+    their whole upsample where it reads full resolution) and the shard's
+    labels, averaged over the data ranks."""
     dev = resolve_device(device)
     grid = _spatial_grid(group)
-    if grid is not None and _loss_full_res(loss_fn):
-        raise NotImplementedError(f"the spatial grid's loss reads the stride-8 logits; "
-                                  f"this one reads {_loss_full_res(loss_fn)}")
 
     @torch.inference_mode()
     def step(model, images_u8, labels_u8, epoch):
@@ -247,7 +258,8 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
         x, lbl = eval_preprocess(_to_device(images_u8, dev), spec,
                                  _to_device(labels_u8, dev))
         if grid is not None:
-            outputs, logits, band = _spatial_eval(model, x, lbl, precision, grid)
+            outputs, logits, band = _spatial_eval(model, x, lbl, precision, grid,
+                                                  _loss_full_res(loss_fn))
             total, _ = loss_fn(outputs, lbl, epoch=epoch)
             total = total.clone()
             grid.data.mean_([total])
@@ -260,6 +272,24 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
         return logits, lbl, confusion_matrix(logits, lbl, num_classes), total
 
     return step
+
+
+def _grid_matrix(model, local: dict, whole: dict, lbl, grid: Grid, frame,
+                 train_metrics: str, precision: str) -> torch.Tensor:
+    """This rank's part of a train step's confusion matrix on the grid:
+    its band of the stride-8 logits against its rows of the downsampled
+    labels (`train_metrics="s8"` and a graph that gives them), else its
+    rows of the full-resolution logits against its rows of the labels, as
+    the one-process step falls back for a graph without stride-8 logits."""
+    s8 = local.get("logits_s8") if train_metrics == "s8" else None
+    if s8 is not None:
+        _, bands = grid.band_of(s8)
+        lo, hi = bands[grid.m]
+        whole_lbl = downsample_labels(lbl, (bands[-1][1], s8.shape[3]))
+        return confusion_matrix(s8, whole_lbl[:, lo:hi])
+    rows = grid.rows(frame[0])
+    return confusion_matrix(_upsampled(model, whole, frame, precision, rows=rows),
+                            lbl[:, rows])
 
 
 def step_draws(spec: DeviceAugmentSpec, n: int, seed: int,
@@ -388,23 +418,27 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     ("data", "model") mesh with images under P("data", "model")): each
     rank gets its data shard's whole frames, augments them with the global
     batch's draws and runs the forward on its band of the augmented rows
-    (`spatial_rows`); it gathers both stride-8 logit maps and computes its
-    data shard's loss of them (the same on every model rank); the
-    BatchNorms normalise over the whole grid; the gradients are summed
-    over the model ranks and averaged over the data ranks; the stride-8
-    matrix is counted from the band's rows and summed over the grid. It
-    takes a loss that reads only the stride-8 logits and
-    `train_metrics="s8"`, without semi mode, a point head or the debugging
-    dumps (NotImplementedError). A grid of one model rank runs the
-    data-parallel path over its data group."""
+    (`spatial_rows`); it gathers the graph's low-resolution logits whole
+    (its `BAND_OUTPUTS`: OCRNet's two stride-8 maps, stride 4 on HRNet;
+    DeepLab's `logits_s8`; HRNetv2's stride-4 `logits_s4`), upsamples
+    them whole where the loss reads full resolution (at the graph's
+    `ALIGN_CORNERS`, as JAX's `_sharded_loss` hands each device the
+    logits whole over 'model') and computes its data shard's loss of them
+    (the same on every model rank); the BatchNorms normalise over the
+    whole grid; the gradients are summed over the model ranks and averaged
+    over the data ranks; the matrix is counted from the band's rows (the
+    stride-8 logits under "s8" where the graph gives them, else the
+    full-resolution logits' rows) and summed over the grid. Semi mode, a
+    point head and the debugging dumps stay off the grid
+    (NotImplementedError). A grid of one model rank runs the data-parallel
+    path over its data group."""
     grid = _spatial_grid(group)
     if isinstance(group, Grid):
         group = group.data
-    if grid is not None and (_loss_full_res(loss_fn) or train_metrics != "s8"
-                             or semi is not None or has_point_head or debug_pred):
+    if grid is not None and (semi is not None or has_point_head or debug_pred):
         raise NotImplementedError(
-            "the spatial grid's train step takes a loss of the stride-8 logits and "
-            "train_metrics 's8', without semi mode, a point head or debug_pred")
+            "the spatial grid's train step runs without semi mode, a point head "
+            "or debug_pred")
     group = group or DataGroup()
     if semi is not None and int(semi.get("n_shards", group.n_use)) != group.n_use:
         raise ValueError(f"the semi batch is laid out in {semi['n_shards']} shard "
@@ -427,7 +461,8 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             draws = step_draws(spec, n_global, seed, state.step)
         x, lbl = augment_batch(images, labels, spec, draws.select(rows))
         x = x.permute(0, 3, 1, 2)
-        band = grid.rows(x.shape[2]) if grid is not None else slice(None)
+        frame = tuple(x.shape[2:])
+        band = grid.rows(frame[0]) if grid is not None else slice(None)
         x = x[:, :, band].contiguous()
         # the semi block's labelled samples: its first half
         half = x.shape[0] // 2 if semi is not None else x.shape[0]
@@ -443,11 +478,13 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
                 else points[rows]
         model.train()
         with global_batch_norm(model, group if grid is None else grid.norm), \
-                spatial_rows(model, grid):
-            outputs = _forward(model, x, precision, full_res, points)
+                spatial_rows(model, grid, frame) as framed:
+            outputs = _forward(model, x, precision, full_res if grid is None else (),
+                               points)
         local = outputs
         if grid is not None:
-            outputs = _gathered(outputs, grid)
+            outputs = _whole(model, outputs, framed, frame, precision,
+                             _loss_full_res(loss_fn))
         total, terms = loss_fn(outputs, lbl, epoch=epoch, step=state.step)
         if has_point_head and "point_logits" in outputs:
             p_loss = point_loss(outputs, lbl, task,
@@ -466,9 +503,8 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
             state.apply_gradients(grads)
             s8 = outputs.get("logits_s8", outputs.get("logits_s8_acf"))
             if grid is not None:
-                s8_rows = grid.rows(s8.shape[2])
-                cm = grid.norm.all_reduce_(confusion_matrix(
-                    local["logits_s8"], downsample_labels(lbl, s8.shape[2:])[:, s8_rows]))
+                cm = grid.norm.all_reduce_(_grid_matrix(
+                    model, local, outputs, lbl, framed, frame, train_metrics, precision))
             elif train_metrics == "s8" and s8 is not None:
                 cm = group.all_reduce_(confusion_matrix(
                     s8[:half], downsample_labels(lbl[:half], s8.shape[2:])))

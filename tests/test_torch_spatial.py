@@ -35,9 +35,10 @@ fixture before the JAX side compiles in this process. The grids over them:
   rank is bit-equal.
 - The twins' tiny path with --grid 2,2 within the JAX twins test's bars,
   its losses within 1e-5 of the two data ranks'.
-- Refusals: a band the stride cannot split or smaller than a halo raises
-  ValueError naming the layer; HRNet, a projector and other graphs raise
-  NotImplementedError.
+- Refusals: a frame the model ranks cannot split or a stride that leaves a
+  rank no rows raises ValueError naming the layer; a projector, UPerNet,
+  FCN, PointRend and UNet raise NotImplementedError (the other graphs:
+  tests/test_torch_spatial_graphs.py).
 """
 import json
 import os
@@ -477,48 +478,61 @@ def _fake_grid(shape=(1, 2)):
 
 
 def test_misaligned_and_small_bands_raise():
+    """Bands may be odd and shorter than a halo (tests/test_torch_spatial_graphs.py);
+    a frame the model ranks cannot split, a stride that leaves a rank no
+    rows, or an input that is not the rank's band raise ValueError naming
+    the layer."""
     model = build_model(R18, 2, device="cpu")
     grid = _fake_grid()
     with pytest.raises(ValueError, match="do not split over 2 model ranks"):
         grid.rows(63)
-    for rows, what in ((34, "backbone.conv1: a band of 17 rows"),     # odd at stride 2
-                       (4, "backbone.conv1: a band of 2 rows")):      # below the 3-row halo
-        with pytest.raises(ValueError, match=what), spatial_rows(model, grid), \
+    for frame, rows, what in (
+            ((2, 32), 1, r"backbone.conv1: the 7x7 window at stride 2.*\[\(0, 1\), \(1, 1\)\]"),
+            ((64, 32), 20, "backbone.conv1: 20 rows at stride 1 are not model rank 0's band")):
+        with pytest.raises(ValueError, match=what), spatial_rows(model, grid, frame), \
                 torch.no_grad():
-            model(torch.zeros(1, 3, rows // 2, 32), full_res=())
+            model(torch.zeros(1, 3, rows, 32), full_res=())
 
 
 def test_deeper_misalignment_names_its_layer(ranks):
+    """32 rows on two ranks leave rank 1 no row at R18's stride 32."""
     for r in ranks["got"][:2]:
-        assert r["errors"].startswith("backbone.layer3.0.downsample.0: a band of 3 rows")
+        assert r["errors"].startswith("backbone.layer4.0.downsample.0: the 1x1 window "
+                                      "at stride 2"), r["errors"]
 
 
 @pytest.mark.parametrize("graph", [
-    {"model": "OCRNet", "backbone": "hrnetv2_w4"},
     {"model": "OCRNet", "backbone": "resnet18",
      "projector": {"d": 8, "mlp": [[1, 8, 1]], "use_bn": True}},
-    {"model": "DeepLabv3", "backbone": "resnet18", "out_stride": 8},
-    {"model": "FCN", "width": 0.125}], ids=["hrnet", "projector", "deeplab", "fcn"])
+    {"model": "FCN", "width": 0.125},
+    {"model": "EncDec", "encoder": {"model": "ResNet18"},
+     "decoder": {"model": "UPerNet", "ppm_num_ch": 32, "fpn_num_ch": 32}},
+    {"model": "PointRend", "encoder": {"model": "ResNet18"}},
+    {"model": "UNet"}], ids=["projector", "fcn", "upernet", "pointrend", "unet"])
 def test_other_graphs_raise_not_implemented(graph):
     model = build_model(graph, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         check_graph(model)
     with pytest.raises(NotImplementedError, match="ROADMAP item 18"), \
-            spatial_rows(model, _fake_grid()):
+            spatial_rows(model, _fake_grid(), (64, 64)):
         pass
 
 
 def test_grid_step_refuses_full_resolution_losses_and_metrics():
+    """A full-resolution loss and "full" train metrics run on the grid (the
+    logits gathered and upsampled whole, the matrix from the band's rows);
+    semi mode, a point head and the debugging dumps stay refused."""
     def loss(outputs, labels, **kw):
         return None
 
     loss.full_res = ("logits",)
-    with pytest.raises(NotImplementedError, match="stride-8 logits"):
-        make_train_step(loss, None, 2, device="cpu", train_metrics="s8", group=_fake_grid())
-    loss.full_res = ()
-    with pytest.raises(NotImplementedError, match="train_metrics 's8'"):
-        make_train_step(loss, None, 2, device="cpu", train_metrics="full",
+    for metrics in ("s8", "full"):
+        make_train_step(loss, None, 2, device="cpu", train_metrics=metrics,
                         group=_fake_grid())
-    # a grid of one model rank is the data-parallel path, which takes both
-    make_train_step(loss, None, 2, device="cpu", train_metrics="full",
-                    group=_fake_grid((1, 1)))
+        make_eval_loss_step(loss, None, device="cpu", group=_fake_grid())
+    for kwargs in ({"semi": {"threshold": 0.9, "ignore_id": 255}},
+                   {"has_point_head": True}, {"debug_pred": True}):
+        with pytest.raises(NotImplementedError, match="semi mode, a point head or debug_pred"):
+            make_train_step(loss, None, 2, device="cpu", group=_fake_grid(), **kwargs)
+        # a grid of one model rank is the data-parallel path, which takes them
+        make_train_step(loss, None, 2, device="cpu", group=_fake_grid((1, 1)), **kwargs)

@@ -57,7 +57,7 @@ def _band_grads(module, x, cot, grid):
     gradients."""
     rows = grid.rows(x.shape[2])
     xl = x[:, :, rows].clone().requires_grad_(True)
-    with _Site(grid, module):
+    with _Site(grid.framed(x.shape[2:]), module):
         y = module(xl)
     (y * cot[:, :, grid.rows(cot.shape[2])]).sum().backward()
     return {"y": y.detach(), "dx": xl.grad,
@@ -104,7 +104,7 @@ def units(grid, p):
                             "state": {k: v.clone() for k, v in bn.state_dict().items()}}
     # gather_rows and the upsample's rows
     s8 = p["s8"][:, :, grid.rows(p["s8"].shape[2])].clone().requires_grad_(True)
-    whole = grid.gather_rows(s8)
+    whole = grid.framed(p["s8"].shape[2:]).gather_rows(s8)
     (whole * p["s8_cot"]).sum().backward()
     out["gather_rows"] = {"whole": whole.detach(), "ds8": s8.grad}
     out["band_logits"] = band_logits(p["s8"], p["up_hw"], grid.rows(p["up_hw"][0]))
@@ -174,13 +174,13 @@ def _checkpoint(grid, p, kept, directory):
 
 
 def _errors(grid12, p):
-    """A band that a stride cannot split deeper in the trunk raises
+    """A stride that leaves a rank no rows deeper in the trunk raises
     ValueError on both ranks (naming the layer)."""
     model = _model(p["graph"], p["flagship"]["state_dict"])
-    x = torch.zeros(1, 3, 2 * 24, 64, dtype=torch.float64)
+    x = torch.zeros(1, 3, 32, 64, dtype=torch.float64)
     try:
-        with spatial_rows(model, grid12), torch.no_grad():
-            model(x[:, :, grid12.rows(48)], full_res=())
+        with spatial_rows(model, grid12, x.shape[2:]), torch.no_grad():
+            model(x[:, :, grid12.rows(32)], full_res=())
     except ValueError as exc:
         return str(exc)
     return None
