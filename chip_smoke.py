@@ -300,7 +300,12 @@ Phases (any failure raises and the run exits non-zero):
      steps held as (a) and (f) (one B3 and one B4f, one B1 and one B2 a
      rank), the eval-loss steps of OCRNet on HRNet-W18 and DeepLabv3+-R50
      (one B1 a rank) held as (c) and in their loss, each graph's step ms
-     and seconds inside gloo printed.
+     and seconds inside gloo printed; (h) the decoders the grid splits,
+     the same way at GRID28_GRAPH_BATCH on configs/UPN_rf_lvsz.json's
+     LossWrapper bucket Lovász: the UPerNet-R34, FCN (width 1.0) and UNet
+     train steps (one B1 and one B2 a rank; one B3 and one B4f a rank, at
+     C 17 and 18) and the UPerNet-ResNeXt-50 eval-loss step (one B1 a
+     rank).
 Each phase prints its wall time. The line before the last line of stdout
 is the card's name and power limit as nvidia-smi reports them; the line
 before it is the kernels' JSON record; the last line is
@@ -4964,6 +4969,23 @@ def grid28_graphs() -> dict:
     }
 
 
+def grid28_decoders() -> dict:
+    """name -> (config, "train" or "eval_loss", the launches of a rank's
+    step) of phase 28(h): configs/UPN_rf_lvsz.json (its LossWrapper sent
+    to the bucket route) with UPerNet-R34 as shipped, FCN at width 1.0,
+    UNet, and UPerNet on ResNeXt-50."""
+    upn = upernet_config()
+    generic = {"bucket_hist": 1, "bucket_dlogits": 1}
+    return {
+        "UPerNet-R34": (upn, "train", {"fu_hist": 1, "fu_grad": 1}),
+        "FCN": (dict(upn, graph={"model": "FCN", "width": 1.0}), "train", generic),
+        "UNet": (dict(upn, graph={"model": "UNet"}), "train", generic),
+        "UPerNet-ResNeXt50": (dict(upn, graph={"model": "UPerNet",
+                                               "encoder": {"model": "ResNeXt50"}}),
+                              "eval_loss", {"fu_hist": 1}),
+    }
+
+
 def live_bytes(dev) -> int:
     """The bytes allocated on the card before a step's model is built
     (what earlier work left in the process), which its peak leaves out."""
@@ -4987,7 +5009,7 @@ def step_distance(a: dict, b: dict, lr: float) -> dict:
     return {"loss": max(abs(a["scalars"][k] - b["scalars"][k])
                         for k in b["scalars"] if k != "grad_norm"),
             "grad_norm": abs(a["scalars"]["grad_norm"] / b["scalars"]["grad_norm"] - 1),
-            "stats": max(rel_l2(a["sd"][k], b["sd"][k]) for k in stats),
+            "stats": max((rel_l2(a["sd"][k], b["sd"][k]) for k in stats), default=0.0),
             "flip_share": float((dp.abs() > lr / 2).double().mean()),
             "params_max_over_lr": float(dp.abs().max()) / lr,
             "cm_share": float((a["cm"] - b["cm"]).abs().sum()) / (2 * float(b["cm"].sum()))}
@@ -5132,8 +5154,8 @@ def rank28(rank: int, world: int, payload: str) -> dict:
     memory counted, then its time, and a step with gloo's all-reduces
     timed; (b) a bf16 step from the same weights; (c) the eval step of (a)'s
     weights; (d) rank 0 saves (a)'s model and train state, both ranks
-    restore them into a fresh model and state; (g) the other graphs'
-    float32 steps (`grid28_graph`), each timed."""
+    restore them into a fresh model and state; (g) the other graphs' and
+    (h) the decoders' float32 steps (`grid28_graph`), each timed."""
     import torch.distributed as dist
 
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import (
@@ -5205,9 +5227,10 @@ def rank28(rank: int, world: int, payload: str) -> dict:
     # (g) the other graphs, float32, TF32 off
     images, labels = synthetic_set(n=GRID28_GRAPH_BATCH, h=p["h"], w=p["w"])
     rows = grid.local_rows(GRID28_GRAPH_BATCH)
-    out["graphs"] = {name: grid28_graph(gcfg, kind, dev, images[rows], labels[rows], grid,
+    for part, graphs in (("graphs", grid28_graphs()), ("decoders", grid28_decoders())):
+        out[part] = {name: grid28_graph(gcfg, kind, dev, images[rows], labels[rows], grid,
                                         timed=True)
-                     for name, (gcfg, kind, _) in grid28_graphs().items()}
+                     for name, (gcfg, kind, _) in graphs.items()}
     return out
 
 
@@ -5261,13 +5284,18 @@ def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
             one_bf16 = {"loss": float(m["loss"]), "cm": m["confusion_matrix"].cpu()}
             del model, state, step, m
             torch.cuda.empty_cache()
-            # (g) each graph in one process, and from weights moved by noise
+            # (g) and (h): each graph in one process, and from weights moved
+            # by noise
             g_images, g_labels = synthetic_set(n=GRID28_GRAPH_BATCH, h=h, w=w)
-            graphs = grid28_graphs()
-            g_one = {name: grid28_graph(gcfg, kind, dev, g_images, g_labels, timed=True)
-                     for name, (gcfg, kind, _) in graphs.items()}
-            g_noise = {name: grid28_graph(gcfg, kind, dev, g_images, g_labels, noise=True)
-                       for name, (gcfg, kind, _) in graphs.items()}
+            parts = {"graphs": grid28_graphs(), "decoders": grid28_decoders()}
+            g_one, g_noise = {}, {}
+            for part, graphs in parts.items():
+                g_one[part] = {name: grid28_graph(gcfg, kind, dev, g_images, g_labels,
+                                                  timed=True)
+                               for name, (gcfg, kind, _) in graphs.items()}
+                g_noise[part] = {name: grid28_graph(gcfg, kind, dev, g_images, g_labels,
+                                                    noise=True)
+                                 for name, (gcfg, kind, _) in graphs.items()}
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         t = time.perf_counter()
@@ -5349,22 +5377,25 @@ def phase28_spatial(dev, h: int = 540, w: int = 960) -> dict:
               f"{one_forward_end / 2**30!r} GiB; card {smi}", flush=True)
         if max(mem) > GRID28_MEMORY_SHARE:
             bad.append(f"(f) a rank's peak memory share {mem}")
-        bad += grid28_graphs_held(graphs, [r["graphs"] for r in ranks], g_one, g_noise,
-                                  lr, smi)
+        for part, label in (("graphs", "g"), ("decoders", "h")):
+            bad += grid28_graphs_held(parts[part], [r[part] for r in ranks], g_one[part],
+                                      g_noise[part], lr, smi, label)
         if bad:
             raise AssertionError("phase 28: " + "; ".join(bad))
         return {**{k: sum(n[k] for n in launches) for k in ("fu_hist", "fu_grad")},
-                "graphs": {name: {k: sum(r["graphs"][name]["launches"][k] for r in ranks)
-                                  for k in want} for name, (_, _, want) in graphs.items()}}
+                **{part: {name: {k: sum(r[part][name]["launches"][k] for r in ranks)
+                                 for k in want} for name, (_, _, want) in graphs.items()}
+                   for part, graphs in parts.items()}}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: float,
-                       smi: str) -> list:
-    """Phase 28(g)'s prints and gates: each graph's grid ranks (`ranks`,
-    their `grid28_graph` records by name) against its one-process run and
-    the one-process run from weights moved by noise; the failures."""
+                       smi: str, label: str = "g") -> list:
+    """Phase 28(g)'s or 28(h)'s (`label`) prints and gates: each graph's
+    grid ranks (`ranks`, their `grid28_graph` records by name) against its
+    one-process run and the one-process run from weights moved by noise;
+    the failures."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.kernels import KERNELS
 
     bad = []
@@ -5373,7 +5404,7 @@ def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: fl
         want = dict(dict.fromkeys(KERNELS, 0), **want)
         launches = [g["launches"] for g in got]
         if any(n != want for n in launches) or one[name]["launches"] != want:
-            bad.append(f"(g) {name}: launches {launches}, one process "
+            bad.append(f"({label}) {name}: launches {launches}, one process "
                        f"{one[name]['launches']} (want {want})")
         if kind == "train":
             far = step_distance(got[0], one[name], lr)
@@ -5384,7 +5415,7 @@ def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: fl
                                                        for g in got)
             one_peak = one[name].get("peak_bytes", 0)      # 0 in a CPU rehearsal
             mem = [g.get("peak_bytes", 0) / max(one_peak, 1) for g in got]
-            print(f"28(g) {name} on the (1, 2) grid, float32 step (TF32 off), batch "
+            print(f"28({label}) {name} on the (1, 2) grid, float32 step (TF32 off), batch "
                   f"{GRID28_GRAPH_BATCH}, against one process: {json.dumps(far)}; the "
                   f"noise's {json.dumps(ref)}; gates {json.dumps(gates)}, loss "
                   f"{GRID28_LOSS_TOL}, params within 2 lr; ranks equal {equal}; "
@@ -5395,9 +5426,9 @@ def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: fl
                   f"{GRID28_MEMORY_SHARE}); card {smi}", flush=True)
             if any(far[k] > g for k, g in gates.items()) or far["loss"] > GRID28_LOSS_TOL \
                     or far["params_max_over_lr"] > 2.0 + 1e-3 or not equal:
-                bad.append(f"(g) {name}'s float32 step against one process: {far}")
+                bad.append(f"({label}) {name}'s float32 step against one process: {far}")
             if max(mem) > GRID28_MEMORY_SHARE:
-                bad.append(f"(g) {name}: a rank's peak memory share {mem}")
+                bad.append(f"({label}) {name}: a rank's peak memory share {mem}")
         else:
             pred = torch.cat([g["pred"] for g in got], dim=1)
             share = float((pred != one[name]["pred"]).double().mean())
@@ -5406,7 +5437,7 @@ def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: fl
             loss_gate = max(GRID28_RATIO * abs(noise[name]["loss"] - one[name]["loss"]),
                             GRID28_LOSS_TOL)
             pixel_gate = max(GRID28_RATIO * noise_share, GRID28_PIXEL_FLOOR)
-            print(f"28(g) {name}'s eval-loss step (float32) on the (1, 2) grid, batch "
+            print(f"28({label}) {name}'s eval-loss step (float32) on the (1, 2) grid, batch "
                   f"{GRID28_GRAPH_BATCH}, against one process: loss {got[0]['loss']!r} "
                   f"against {one[name]['loss']!r} (difference {d_loss!r}, gate "
                   f"{loss_gate!r}); the share of {pred.numel()} pixels in another class "
@@ -5416,8 +5447,8 @@ def grid28_graphs_held(graphs: dict, ranks: list, one: dict, noise: dict, lr: fl
                     d_loss > loss_gate or any(g["loss"] != got[0]["loss"] for g in got) or \
                     any(not torch.equal(g["cm"], got[0]["cm"]) for g in got) or \
                     int(got[0]["cm"].sum()) != int(one[name]["cm"].sum()):
-                bad.append(f"(g) {name}'s eval-loss step: loss {d_loss}, share {share}")
-        print(f"28(g) {name} step times (CUDA events, median of 2, TF32 off): one process "
+                bad.append(f"({label}) {name}'s eval-loss step: loss {d_loss}, share {share}")
+        print(f"28({label}) {name} step times (CUDA events, median of 2, TF32 off): one process "
               f"{one[name].get('ms')!r} ms; grid ranks {[g.get('ms') for g in got]} ms (both on "
               f"one card); a step with the all-reduces timed: "
               f"{[g.get('timed_step_s') for g in got]} s, of it inside gloo's all-reduces "
@@ -5515,11 +5546,12 @@ def main() -> int:
     b1["twins_launches"], b2["twins_launches"] = twins["fu_hist"], twins["fu_grad"]
     grid = phase(28, phase28_spatial, dev)
     b1["grid_launches"], b2["grid_launches"] = grid["fu_hist"], grid["fu_grad"]
-    # phase 28(g): each graph's step summed over the two ranks
+    # phase 28(g) and 28(h): each graph's step summed over the two ranks
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad"), (b3, "bucket_hist"),
                      (b4f, "bucket_dlogits")):
-        rec["grid_graph_launches"] = {name: n[key] for name, n in grid["graphs"].items()
-                                      if n.get(key)}
+        for part, name in (("graphs", "grid_graph_launches"),
+                           ("decoders", "grid_decoder_launches")):
+            rec[name] = {g: n[key] for g, n in grid[part].items() if n.get(key)}
     for rec, key in ((b1, "fu_hist"), (b2, "fu_grad")):
         rec["contrastive_launches"] = zoo["contrastive"][key]
         rec["zoo_launches"] = zoo["zoo"][key]
@@ -5573,7 +5605,8 @@ def main() -> int:
           "and the data tools), over the (1, 2) spatial grid's float32 step (phase 28: "
           f"B1/B2 {grid['fu_hist']}/{grid['fu_grad']} summed over the two ranks, "
           "'grid_launches'; the other graphs' steps on the grid, summed over the ranks, "
-          f"{json.dumps(grid['graphs'])}, 'grid_graph_launches') "
+          f"{json.dumps(grid['graphs'])}, 'grid_graph_launches'; the decoders' steps "
+          f"{json.dumps(grid['decoders'])}, 'grid_decoder_launches') "
           "and over the prototype counterpart's main (P1/P2: "
           f"{protos['fused_upsample']['launches']}/"
           f"{protos['fused_downsample']['launches']}, one each per check and "

@@ -18,6 +18,11 @@ gives as `logits` and cannot hold against full-size labels; the port
 resizes the UPerNet's logits to the input's size instead
 (align_corners=False, one bilinear resize of the stride-4 logits), so
 that validation and the full-resolution losses see the labels' grid.
+Under a spatial grid (parallel/spatial.py, `grid`; a ResNet-family
+encoder and UPerNet only) the encoder and decoder run on this rank's band
+of rows and the forward gives no `logits`: `logits_s8_acf` and
+`deep_features` are this rank's bands, and the steps gather the first and
+upsample it whole at align_corners=False (`BAND_OUTPUTS`, `ALIGN_CORNERS`).
 PointRend outputs `logits` at full resolution always (with `coarse_logits`,
 `point_logits` and `point_coords` in train mode) and `deep_features`; its
 config takes the reference's `pr_*` names and the JAX package's own.
@@ -52,6 +57,11 @@ _POINTREND_KEYS = tuple(_POINTREND_ALIASES.values())
 
 
 class EncDec(nn.Module):
+    # under a spatial grid: the band output whose whole upsample is each
+    # full-resolution output, and the upsample's convention
+    BAND_OUTPUTS = {"logits": "logits_s8_acf"}
+    ALIGN_CORNERS = False
+
     def __init__(self, task: int = 2, encoder: dict | None = None,
                  decoder: dict | None = None, projector: dict | None = None):
         super().__init__()

@@ -17,6 +17,13 @@ table for either, so the torch names follow its flax names: FCN's
     `taxonomy.num_label_values(task)` channels: the ignore channel is
     kept for tasks 2 and 3 (the reference's UNet.py:21 has no -1).
 Both forwards return {"logits": NCHW >= f32 logits at the input's size}.
+Under a spatial grid (parallel/spatial.py, `grid`) both run on this
+rank's band of rows: the convolutions, pools and transposed convolutions
+are models/layers.py's, the skips join bands of one stride, UNet's
+upsamples are band resizes, and `logits` is this rank's band of the
+full-resolution logits (`BAND_OUTPUTS`). A frame whose sides 32 (UNet: 8)
+does not divide raises ValueError naming the first pool or layer that
+would need a resize.
 """
 from __future__ import annotations
 
@@ -26,16 +33,24 @@ from torch import nn
 
 from miccai2021_cataract_semantic_segmentation_tpu_torch import taxonomy
 from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
-    to_f32, torch_pad, upsample_like)
+    Conv2d, ConvTranspose2d, MaxPool2d, to_f32, torch_pad, upsample_like)
 
 
 def _resize_to(y: torch.Tensor, hw) -> torch.Tensor:
-    """`y` bilinearly resized (align_corners=False) to `hw` where it differs."""
+    """`y` bilinearly resized (align_corners=False) to `hw` where it
+    differs (never under a spatial grid, whose pools and transposed
+    convolutions take only frames whose sizes meet)."""
     return y if tuple(y.shape[2:]) == tuple(hw) else \
         upsample_like(y, tuple(hw), align_corners=False)
 
 
 class FCN(nn.Module):
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+    # under a spatial grid: the band output whose whole upsample is each
+    # full-resolution output (here the output itself), and its convention
+    BAND_OUTPUTS = {"logits": "logits"}
+    ALIGN_CORNERS = False
+
     def __init__(self, task: int = 1, width: float = 1.0):
         super().__init__()
         k = taxonomy.TASK_NUM_CLASSES[task]
@@ -43,14 +58,14 @@ class FCN(nn.Module):
                                        * width).astype(int)]
         c_in = 3
         for i, (c, ks) in enumerate(zip(ch + [k], (3, 3, 3, 3, 3, 3, 1, 1))):
-            setattr(self, f"conv{i + 1}", nn.Conv2d(c_in, c, ks, padding=torch_pad(ks)))
+            setattr(self, f"conv{i + 1}", Conv2d(c_in, c, ks, padding=torch_pad(ks)))
             c_in = c
-        self.p4_conv = nn.Conv2d(ch[3], k, 1)
-        self.p3_conv = nn.Conv2d(ch[2], k, 1)
+        self.p4_conv = Conv2d(ch[3], k, 1)
+        self.p3_conv = Conv2d(ch[2], k, 1)
         for name, ks, s in (("deconv32", 4, 2), ("deconv16", 4, 2), ("deconv8", 16, 8)):
-            setattr(self, name, nn.ConvTranspose2d(k, k, ks, stride=s,
-                                                   padding=(ks - s + 1) // 2))
-        self.pool = nn.MaxPool2d(2, 2)
+            setattr(self, name, ConvTranspose2d(k, k, ks, stride=s,
+                                                padding=(ks - s + 1) // 2))
+        self.pool = MaxPool2d(2, 2)
 
     def forward(self, x: torch.Tensor) -> dict:
         y, pools = x, []
@@ -66,16 +81,20 @@ class FCN(nn.Module):
 
 
 class UNet(nn.Module):
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+    BAND_OUTPUTS = {"logits": "logits"}      # as FCN's
+    ALIGN_CORNERS = True
+
     def __init__(self, task: int = 1):
         super().__init__()
         widths = {"down1": (3, 64), "down2": (64, 128), "down3": (128, 256),
                   "down4": (256, 512), "up3": (512 + 256, 256),
                   "up2": (256 + 128, 128), "up1": (128 + 64, 64)}
         for name, (c_in, c) in widths.items():
-            setattr(self, f"{name}_conv1", nn.Conv2d(c_in, c, 3, padding=1))
-            setattr(self, f"{name}_conv2", nn.Conv2d(c, c, 3, padding=1))
-        self.conv_last = nn.Conv2d(64, taxonomy.num_label_values(task), 1)
-        self.pool = nn.MaxPool2d(2, 2)
+            setattr(self, f"{name}_conv1", Conv2d(c_in, c, 3, padding=1))
+            setattr(self, f"{name}_conv2", Conv2d(c, c, 3, padding=1))
+        self.conv_last = Conv2d(64, taxonomy.num_label_values(task), 1)
+        self.pool = MaxPool2d(2, 2)
 
     def _double(self, y: torch.Tensor, name: str) -> torch.Tensor:
         y = torch.relu(getattr(self, f"{name}_conv1")(y))
@@ -87,6 +106,9 @@ class UNet(nn.Module):
         d3 = self._double(self.pool(d2), "down3")
         y = self._double(self.pool(d3), "down4")
         for name, skip in (("up3", d3), ("up2", d2), ("up1", d1)):
-            y = upsample_like(y, (2 * y.shape[2], 2 * y.shape[3]), align_corners=True)
+            # under a grid the 2x upsample's band is the skip's (the bands
+            # of the next stride), which the concatenation needs anyway
+            hw = (2 * y.shape[2], 2 * y.shape[3]) if self.grid is None else skip.shape[2:]
+            y = upsample_like(y, hw, align_corners=True, grid=self.grid)
             y = self._double(torch.cat([y, skip], dim=1), name)
         return {"logits": to_f32(self.conv_last(y))}

@@ -6,9 +6,10 @@ HRNet's torch 0.01 is flax 0.99), and updates
 its running variance in train mode with the biased batch variance, as
 flax does (`BatchNorm2d`). Modules keep the reference's torch state-dict
 names, so a published checkpoint loads with `load_state_dict(strict=True)`.
-`Conv2d` and `MaxPool2d` are torch's, which under a spatial grid
-(parallel/spatial.py, `grid`) work on this rank's band of rows, as do
-`upsample_like` and `global_avg_pool` given the grid.
+`Conv2d`, `ConvTranspose2d` and `MaxPool2d` are torch's, which under a
+spatial grid (parallel/spatial.py, `grid`) work on this rank's band of
+rows, as do `upsample_like`, `global_avg_pool` and `adaptive_avg_pool`
+given the grid.
 """
 from __future__ import annotations
 
@@ -43,25 +44,41 @@ def _pair(v) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+def _check_out(module, grid, what: str, rows: int, cols: int, stride: int) -> list:
+    """The bands at a window op's output `stride`; ValueError naming the
+    layer unless its output over the whole activation, `rows` x `cols`,
+    is the frame's at that stride and every band holds a row."""
+    out = grid.bands(stride)
+    if (rows, cols) != (out[-1][1], -(-grid.frame[1] // stride)) or \
+            any(hi <= lo for lo, hi in out):
+        raise ValueError(
+            f"{module.site}: the {what} ({rows}x{cols} out) does not split over the grid "
+            f"{grid.shape}: its bands of the {grid.frame} frame's rows would be {out} at "
+            f"stride {stride}; the grid takes ops whose output over the whole "
+            f"activation is the frame's at their stride, and bands of a row or more")
+    return out
+
+
 def band_forward(module: nn.Module, x: torch.Tensor, fill: float, op) -> torch.Tensor:
     """`op(rows)` of this rank's band `x` of a window op's input (kernel,
     stride, padding and dilation from `module`; the height's padding
     replaced by the rows the band's windows read, from whichever ranks own
     them, and `fill` beyond the image): this rank's band of the output
-    (parallel/spatial.py: the rows whose window centre lies in its input
-    band). A window that is not centred, or a stride that leaves a model
-    rank no rows, raises ValueError naming the layer."""
-    k, s = _pair(module.kernel_size)[0], _pair(module.stride)[0]
-    p, d = _pair(module.padding)[0], _pair(module.dilation)[0]
+    (parallel/spatial.py, `Grid.bands`). Any window serves, centred or
+    not, so long as its output over the whole activation,
+    floor((H + 2p - d(k-1) - 1) / s) + 1 rows and as many columns by the
+    width's terms, is the frame's at the output's stride (`_check_out`);
+    ceil mode is refused."""
+    (k, kw), (s, sw) = _pair(module.kernel_size), _pair(module.stride)
+    (p, pw), (d, dw) = _pair(module.padding), _pair(module.dilation)
     grid, span = module.grid, d * (k - 1)
     stride, bands = grid.band_of(x, module.site)
-    out = grid.bands(stride * s)
-    if 2 * p != span or any(hi <= lo for lo, hi in out):
-        raise ValueError(
-            f"{module.site}: the {k}x{k} window at stride {s}, dilation {d}, padding "
-            f"{p} does not split over the grid {grid.shape}: its bands of the "
-            f"{grid.frame} frame's rows would be {out} at stride {stride * s}; the "
-            f"grid takes centred windows (padding d(k-1)/2) and bands of a row or more")
+    what = f"{k}x{k} window at stride {s}, dilation {d}, padding {p}"
+    if getattr(module, "ceil_mode", False):
+        raise ValueError(f"{module.site}: the {what} in ceil mode does not split over "
+                         f"the grid {grid.shape}")
+    out = _check_out(module, grid, what, (bands[-1][1] + 2 * p - span - 1) // s + 1,
+                     (x.shape[3] + 2 * pw - dw * (kw - 1) - 1) // sw + 1, stride * s)
     # the rows the band's windows span; at least down to the band's end,
     # which completes no further window and keeps the op's input whole
     needs = [(s * lo - p, max(s * (hi - 1) - p + span + 1, band[1]))
@@ -80,11 +97,60 @@ class Conv2d(nn.Conv2d):
     grid = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.grid is None or (self.kernel_size[0], self.stride[0]) == (1, 1):
+        (k, _), (s, _), (p, _), (d, _) = (self.kernel_size, self.stride, self.padding,
+                                          self.dilation)
+        if self.grid is None or (k, s) == (1, 1):
             return super().forward(x)
+        if (s, d) == (1, 1):
+            # with the height padded as in one process and the p extra rows
+            # at each end cropped: cuDNN's heuristics took an FFT algorithm
+            # with a 3.7 GB workspace for the backward of a band padded in
+            # width alone (PERF.md §6, PR 25)
+            return band_forward(self, x, 0.0, lambda e: F.conv2d(
+                e, self.weight, self.bias, 1, self.padding, 1,
+                self.groups)[:, :, p:e.shape[2] + p - (k - 1)])
         return band_forward(self, x, 0.0, lambda e: F.conv2d(
             e, self.weight, self.bias, self.stride, (0, self.padding[1]),
             self.dilation, self.groups))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d`; under a spatial grid (`grid`, as `Conv2d`'s)
+    it gives this rank's band of the output, whose stride is the input's
+    over the op's stride s: output row o takes input rows i with
+    o = s·i - p + t, t in [0, k), so the band [lo, hi) reads input rows
+    [ceil((lo + p - k + 1) / s), floor((hi - 1 + p) / s) + 1), fetched from
+    their owners (zero beyond the image), transposed-convolved with no
+    height padding and cropped to the band (the bias lands once on each
+    output row). Its output over the whole activation, (H - 1)s - 2p + k
+    rows and as many columns by the width's terms, must be the frame's at
+    its stride (`_check_out`)."""
+
+    grid = None
+
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        if self.grid is None:
+            return super().forward(x, output_size)
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        grid = self.grid
+        stride, bands = grid.band_of(x, self.site)
+        what = f"{k}x{k} transposed window at stride {s}, padding {p}"
+        if output_size is not None or self.dilation[0] != 1 or \
+                self.output_padding[0] or k < s or stride % s:
+            raise ValueError(
+                f"{self.site}: the {what} does not split over the grid {grid.shape} at "
+                f"stride {stride}: the grid takes undilated transposed windows no "
+                f"shorter than their stride, without an output size or padding, from "
+                f"an input whose stride theirs divides")
+        kw, sw, pw = self.kernel_size[1], self.stride[1], self.padding[1]
+        out = _check_out(self, grid, what, (bands[-1][1] - 1) * s - 2 * p + k,
+                         (x.shape[3] - 1) * sw - 2 * pw + kw, stride // s)
+        needs = [(-(-(lo + p - k + 1) // s), (hi - 1 + p) // s + 1) for lo, hi in out]
+        (lo, hi), (a, _) = out[grid.m], needs[grid.m]
+        y = F.conv_transpose2d(grid.fetch_rows(x, bands, needs, 0.0), self.weight, self.bias,
+                               self.stride, (0, self.padding[1]), (0, self.output_padding[1]),
+                               self.groups, self.dilation)
+        return y[:, :, lo - s * a + p:hi - s * a + p]
 
 
 class MaxPool2d(nn.MaxPool2d):
@@ -143,13 +209,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         all-reduce that carries the gradient (`DataGroup.sum_`); the global
         mean and biased variance normalise the local rows (`_Normalize`)
         and update the running statistics (the biased update, as above).
-        The shift is the running mean, the same on every rank, which keeps
-        the sum of squares from cancelling. Both steps keep only x for the
-        backward, as cuDNN's BatchNorm does, not the centred copies."""
+        The shift is the global batch's mean (one all-reduce of the sums,
+        without gradient) rounded to bfloat16: within 2^-9 of the mean, so
+        the sum of squares does not cancel where a channel's variance is
+        small beside its mean (a map constant over each frame, as
+        UPerNet's scale-1 pyramid branch; a float32 sum of squares about 0
+        loses that variance), and the same however the batch is split
+        over ranks (a grid's bands, the data ranks' frames), so those
+        splits differ only in the order of their sums. Both steps keep
+        only x for the backward, as cuDNN's BatchNorm does, not the centred
+        copies."""
         acc = acc_dtype(x)
         c = x.shape[1]
-        shift = self.running_mean.to(acc, copy=True)
         count = torch.full((1,), x.numel() // c, dtype=acc, device=x.device)
+        with torch.no_grad():
+            sums = self.group.all_reduce_(torch.cat([x.to(acc).sum(_NOT_CHANNEL), count]))
+            shift = (sums[:c] / sums[c]).to(torch.bfloat16).to(acc)
         stats = self.group.sum_(torch.cat([*_ShiftedSums.apply(x, shift), count]))
         n = stats[2 * c]
         d = stats[:c] / n
@@ -245,23 +320,30 @@ def global_avg_pool(x: torch.Tensor, grid=None) -> torch.Tensor:
 
 
 def upsample_like(x: torch.Tensor, ref_hw: tuple[int, int],
-                  align_corners: bool = True, grid=None) -> torch.Tensor:
-    """Bilinear resize of NCHW `x` to `ref_hw`. Under a spatial `grid` `x`
-    is this rank's band of an activation and `ref_hw` the target band's
-    size: the band's rows of the whole resize, rows of the global
+                  align_corners: bool = True, grid=None,
+                  whole_source: bool = False) -> torch.Tensor:
+    """Bilinear resize of NCHW `x` to `ref_hw`. Under a spatial `grid`
+    `ref_hw` is the target band's size and `x` this rank's band of an
+    activation: the band's rows of the whole resize, rows of the global
     interpolation matrix over the source rows they read, fetched from the
     ranks that own them (`Grid.fetch_rows`, whose backward returns their
-    gradients)."""
+    gradients). With `whole_source` `x` is whole on every model rank (a
+    pooled map): the band's rows of the matrix over all of its rows, and
+    nothing to fetch; each rank's gradient of `x` is then its band's part."""
     if grid is None:
         return resize_bilinear(x, ref_hw, align_corners=align_corners)
-    _, src = grid.band_of(x)
     dst = grid.bands(grid.stride_of(ref_hw[1]))
+    lo, hi = dst[grid.m]
+    if whole_source:
+        mh = interp_matrix(x.shape[2], dst[-1][1], align_corners)
+        return resize_rows(x, mh[lo:hi], ref_hw[1], align_corners)
+    _, src = grid.band_of(x)
     mh = interp_matrix(src[-1][1], dst[-1][1], align_corners)
     needs = []
-    for lo, hi in dst:
-        cols = np.flatnonzero((mh[lo:hi] != 0).any(axis=0))
+    for b_lo, b_hi in dst:
+        cols = np.flatnonzero((mh[b_lo:b_hi] != 0).any(axis=0))
         needs.append((int(cols[0]), int(cols[-1]) + 1))
-    (lo, hi), (a, b) = dst[grid.m], needs[grid.m]
+    a, b = needs[grid.m]
     return resize_rows(grid.fetch_rows(x, src, needs, 0.0), mh[lo:hi, a:b],
                        ref_hw[1], align_corners)
 
@@ -277,15 +359,26 @@ def _pool_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
-def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int], grid=None) -> torch.Tensor:
     """AdaptiveAvgPool2d(out_hw) of NCHW `x` as two small products over
     torch's bins (the JAX package's `adaptive_avg_pool`), accumulated in
-    >= f32 and returned in `x.dtype`."""
+    >= f32 and returned in `x.dtype`. Under a spatial `grid` `x` is this
+    rank's band: its columns of the whole activation's height matrix
+    (bins may straddle bands) times the band, summed over the model ranks
+    (with gradient), so the pooled map is whole and alike on every model
+    rank."""
     acc = acc_dtype(x)
-    mh = torch.as_tensor(_pool_matrix(x.shape[2], out_hw[0]), dtype=acc,
-                         device=x.device)
+    if grid is None:
+        mh = _pool_matrix(x.shape[2], out_hw[0])
+    else:
+        _, bands = grid.band_of(x)
+        lo, hi = bands[grid.m]
+        mh = _pool_matrix(bands[-1][1], out_hw[0])[:, lo:hi]
+    mh = torch.as_tensor(mh, dtype=acc, device=x.device)
     mw = torch.as_tensor(_pool_matrix(x.shape[3], out_hw[1]), dtype=acc,
                          device=x.device)
     with torch.autocast(x.device.type, enabled=False):
         y = torch.matmul(torch.matmul(mh, x.to(acc)), mw.t())
+    if grid is not None:
+        y = grid.model_sum(y)
     return y.to(x.dtype)

@@ -16,7 +16,11 @@ the classifier `conv_last.1`.
   * Every interpolation uses align_corners=False.
 The forward returns (full-resolution logits, pre-upsample logits), both
 in >= f32; `full_res=False` leaves out the final upsample (the first is
-then None).
+then None). Under a spatial grid (parallel/spatial.py, `grid`) every map
+is this rank's band: the pyramid pools sum their bands' share of each bin
+over the model ranks and upsample the whole pooled map to the band, the
+FPN's and the fusion's resizes are band resizes, and the forward gives no
+full-resolution logits (the steps upsample the gathered stride-4 map).
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.models.layers import (
 
 
 class UPerNetDecoder(nn.Module):
+    grid = None          # a spatial grid (parallel/spatial.py:`spatial_rows`)
+
     def __init__(self, in_channels: Sequence[int], task: int = 2,
                  pool_scales: Sequence[int] = (1, 2, 3, 6),
                  input_scales: Sequence[int] = (4, 8, 16, 32),
@@ -59,12 +65,17 @@ class UPerNetDecoder(nn.Module):
             nn.Conv2d(fpn_num_ch, taxonomy.TASK_NUM_CLASSES[task], 1, bias=True))
 
     def forward(self, conv_out: Sequence[torch.Tensor], full_res: bool = True):
+        grid = self.grid
+        if grid is not None and full_res:
+            raise ValueError("under the spatial grid the decoder gives no "
+                             "full-resolution logits")
         top = conv_out[-1]
         hw = top.shape[2:]
         ppm_out = [top]
         for scale, conv in zip(self.pool_scales, self.ppm_conv):
-            p = adaptive_avg_pool(top, (scale, scale))
-            ppm_out.append(conv(upsample_like(p, hw, align_corners=False)))
+            p = adaptive_avg_pool(top, (scale, scale), grid=grid)
+            ppm_out.append(conv(upsample_like(p, hw, align_corners=False, grid=grid,
+                                              whole_source=True)))
         feature = self.ppm_last_conv(torch.cat(ppm_out, dim=1))
 
         fpn_features = [feature]
@@ -72,13 +83,13 @@ class UPerNetDecoder(nn.Module):
             k = self.n_lvl - i
             lateral = self.fpn_in[k](conv_out[-i])
             feature = lateral + upsample_like(feature, lateral.shape[2:],
-                                              align_corners=False)
+                                              align_corners=False, grid=grid)
             fpn_features.append(self.fpn_out[k](feature))
         fpn_features.reverse()                      # finest first
 
         out_hw = fpn_features[0].shape[2:]
         fusion = [fpn_features[0]] + [
-            upsample_like(fpn_features[-i + 1], out_hw, align_corners=False)
+            upsample_like(fpn_features[-i + 1], out_hw, align_corners=False, grid=grid)
             for i in range(2, self.n_lvl + 1)]      # [P2, P5, P4, P3]
         small = self.conv_last(torch.cat(fusion, dim=1))
         logits = None

@@ -13,25 +13,30 @@ model index m = r % M.
 - The M model ranks of one d share that data shard's frames. Model rank m
   holds the frame's rows [m·H/M, (m+1)·H/M) (`rows`; M divides H) and,
   at every stride s of the graph, the band [ceil(m·H/M/s),
-  ceil((m+1)·H/M/s)) (`bands`): the output rows whose window centre lies
-  in its input band, since every window op of the split graphs is centred
-  (padding d(k-1)/2) and lands output row o on input row s·o. So 17 rows
-  over 2 ranks become 9 and 8 at the next stride; bands may differ in
-  height, and none may be empty. An activation's stride is the power of
-  two that takes the frame's width to its width (`stride_of`): the width
-  is never split.
+  ceil((m+1)·H/M/s)) (`bands`): the rows o with s·o in its band of the
+  frame. The rule assigns output rows from the frame alone, so any window
+  serves, centred or not (FCN's and UNet's 2x2 pools, the transposed
+  convolutions, whose output stride is finer than their input's), so long
+  as each rank computes its own output rows from the rows they read and
+  the op's output over the whole activation has the bands' rows. So 17
+  rows over 2 ranks become 9 and 8 at the next stride; bands may differ
+  in height, and none may be empty. An activation's stride is the power
+  of two that takes the frame's width to its width (`stride_of`): the
+  width is never split.
 - A window op reads the rows its band's windows span, from any rank that
   owns them and `fill` beyond the image (`fetch_rows`: one all-reduce of
   a slot a rank, sized to the largest need, each owner writing the rows
   each rank needs; the backward returns every fetched row's gradient to
   its owner the same way). That serves convolutions and the max-pool
-  (models/layers.py:`Conv2d`, `MaxPool2d`), halos taller than a band
+  (models/layers.py:`Conv2d`, `MaxPool2d`, `ConvTranspose2d`), halos taller than a band
   (DeepLab's ASPP), and bilinear resizes between strides, whose band
   rows are rows of the global interpolation matrix and read the few
   source rows they need (models/layers.py:`upsample_like`). Sums over
   all positions add the model ranks' band sums (`model_sum`, `model_max`:
-  the OCR head's softmax, the ASPP's image pool), and the steps read the
-  low-resolution logits whole through `gather_rows`.
+  the OCR head's softmax, the ASPP's image pool, UPerNet's pyramid pools,
+  whose bins straddle bands), and the steps read the low-resolution
+  logits (FCN's and UNet's full-resolution ones) whole through
+  `gather_rows`.
 - BatchNorm normalises over every rank of the grid (`Grid.norm`): a tensor
   that the model ranks hold alike (the OCR context, the ASPP's pooled
   map) is counted M times in both its sums and its count, which leaves
@@ -65,9 +70,10 @@ from miccai2021_cataract_semantic_segmentation_tpu_torch.parallel.dist import (
     DataGroup, SumGrad, World)
 
 ROADMAP_REST = ("the spatial grid covers HRNetv2, OCRNet on a ResNet or an HRNet "
-                "trunk, DeepLabv3 and DeepLabv3+; the rest of ROADMAP item 18 "
-                "(UPerNet, FCN, PointRend, UNet, the Ensemble, the projector) is "
-                "not ported")
+                "trunk, DeepLabv3, DeepLabv3+, FCN, UNet and UPerNet on a ResNet-family "
+                "encoder at four FPN levels with its full-resolution upsample; the rest "
+                "of ROADMAP item 18 (PointRend, the Inception-v3 encoder, the Ensemble, "
+                "the projector) is not ported")
 
 
 def _comm_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -280,7 +286,10 @@ class Grid:
         """The stride of NCHW `x`, this rank's band of an activation, and
         every model rank's band at it; ValueError (naming `site`) where
         `x` does not hold this rank's band."""
-        stride = self.stride_of(x.shape[3])
+        try:
+            stride = self.stride_of(x.shape[3])
+        except ValueError as exc:
+            raise ValueError(f"{site or 'an activation'}: {exc}") from None
         bands = self.bands(stride)
         lo, hi = bands[self.m]
         if x.shape[2] != hi - lo:
@@ -336,17 +345,32 @@ class Grid:
 
 def check_graph(model: torch.nn.Module) -> None:
     """The graphs the grid splits: HRNetv2, OCRNet on a ResNet or an HRNet
-    trunk, DeepLabv3 and DeepLabv3+, each without a projector. Any other
-    graph (UPerNet, FCN, PointRend, UNet, the Ensemble) and any projector
-    raise NotImplementedError."""
+    trunk, DeepLabv3, DeepLabv3+, FCN, UNet and EncDec's UPerNet on a
+    ResNet-family encoder (`fpn_num_lvl` 4, `interpolate_result_up`),
+    each without a projector. Any other graph (PointRend, the Inception-v3
+    encoder, the Ensemble) and any projector raise NotImplementedError."""
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models.deeplab import (
         DeepLabv3, DeepLabv3Plus)
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models.encdec import EncDec
+    from miccai2021_cataract_semantic_segmentation_tpu_torch.models.fcn_unet import FCN, UNet
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models.hrnet import HRNetv2
     from miccai2021_cataract_semantic_segmentation_tpu_torch.models.ocr import OCRNet
     what = type(model).__name__
     if getattr(model, "projector", None) is not None:
         what += " with a projector"
-    elif type(model) in (HRNetv2, OCRNet, DeepLabv3, DeepLabv3Plus):
+    elif type(model) is EncDec:
+        dec = model.dec_model
+        if model.pointrend:
+            what += " with the PointRend decoder"
+        elif model.inception:
+            what += " on the Inception-v3 encoder"
+        elif dec.n_lvl != 4:
+            what += f" with fpn_num_lvl {dec.n_lvl}"
+        elif not dec.interpolate_result_up:
+            what += " with interpolate_result_up false"
+        else:
+            return
+    elif type(model) in (HRNetv2, OCRNet, DeepLabv3, DeepLabv3Plus, FCN, UNet):
         return
     raise NotImplementedError(f"{what} under the spatial grid: {ROADMAP_REST}")
 
@@ -354,8 +378,9 @@ def check_graph(model: torch.nn.Module) -> None:
 @contextlib.contextmanager
 def spatial_rows(model: torch.nn.Module, grid: Grid | None, frame):
     """For the block, the model's row-split modules (every module whose
-    class declares `grid`: models/layers.py's `Conv2d` and `MaxPool2d`,
-    HRNet's fuse modules, the ASPP and decoder, the graphs) work on the
+    class declares `grid`: models/layers.py's `Conv2d`, `ConvTranspose2d`
+    and `MaxPool2d`, HRNet's fuse modules, the ASPP and decoders, the
+    graphs) work on the
     grid's model ranks over frames of (H, W) `frame`, each knowing its
     name for the shard checks' errors; yields the grid with that frame
     (`Grid.framed`). A grid of one model rank, or none, changes nothing

@@ -121,10 +121,13 @@ def band_logits(low: torch.Tensor, out_hw: tuple[int, int], rows: slice,
                 align_corners: bool = True) -> torch.Tensor:
     """The `rows` of the bilinear upsample of whole low-resolution logits
     `low` to `out_hw` at `align_corners` (ops/resize.py's matrices: its
-    rows of the height's, then the width's), at least float32."""
+    rows of the height's, then the width's), at least float32; logits
+    already at `out_hw` (FCN's, UNet's) are taken as they are."""
+    low = low.to(torch.promote_types(low.dtype, torch.float32))
+    if tuple(low.shape[2:]) == tuple(out_hw):
+        return low[:, :, rows]
     mh = interp_matrix(low.shape[2], out_hw[0], align_corners)[rows]
-    return resize_rows(low.to(torch.promote_types(low.dtype, torch.float32)), mh,
-                       out_hw[1], align_corners)
+    return resize_rows(low, mh, out_hw[1], align_corners)
 
 
 def _upsampled(model, whole: dict, frame, precision: str, key: str = "logits",
@@ -277,11 +280,13 @@ def make_eval_loss_step(loss_fn, spec: EvalSpec | None,
 def _grid_matrix(model, local: dict, whole: dict, lbl, grid: Grid, frame,
                  train_metrics: str, precision: str) -> torch.Tensor:
     """This rank's part of a train step's confusion matrix on the grid:
-    its band of the stride-8 logits against its rows of the downsampled
-    labels (`train_metrics="s8"` and a graph that gives them), else its
-    rows of the full-resolution logits against its rows of the labels, as
-    the one-process step falls back for a graph without stride-8 logits."""
-    s8 = local.get("logits_s8") if train_metrics == "s8" else None
+    its band of the stride-8 logits (`logits_s8`, else UPerNet's
+    `logits_s8_acf`) against its rows of the downsampled labels
+    (`train_metrics="s8"` and a graph that gives them), else its rows of
+    the full-resolution logits against its rows of the labels, as the
+    one-process step falls back for a graph without stride-8 logits."""
+    s8 = local.get("logits_s8", local.get("logits_s8_acf")) \
+        if train_metrics == "s8" else None
     if s8 is not None:
         _, bands = grid.band_of(s8)
         lo, hi = bands[grid.m]
@@ -420,8 +425,10 @@ def make_train_step(loss_fn, spec: DeviceAugmentSpec, task: int, *,
     batch's draws and runs the forward on its band of the augmented rows
     (`spatial_rows`); it gathers the graph's low-resolution logits whole
     (its `BAND_OUTPUTS`: OCRNet's two stride-8 maps, stride 4 on HRNet;
-    DeepLab's `logits_s8`; HRNetv2's stride-4 `logits_s4`), upsamples
-    them whole where the loss reads full resolution (at the graph's
+    DeepLab's `logits_s8`; HRNetv2's stride-4 `logits_s4`; UPerNet's
+    stride-4 `logits_s8_acf`; FCN's and UNet's full-resolution `logits`,
+    taken as they are), upsamples them whole where the loss reads full
+    resolution (at the graph's
     `ALIGN_CORNERS`, as JAX's `_sharded_loss` hands each device the
     logits whole over 'model') and computes its data shard's loss of them
     (the same on every model rank); the BatchNorms normalise over the

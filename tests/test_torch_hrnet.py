@@ -11,6 +11,7 @@ tests/test_torch_train.py holds the OCRNet step (the loss runs in float32
 inside both: loss 1e-5, gradients 1e-5 relative L2, new parameters 1e-6,
 a hundredth of lr, BatchNorm statistics 1e-6, the confusion matrix equal).
 """
+import concurrent.futures
 import pathlib
 import warnings
 
@@ -100,8 +101,11 @@ def jax_hrnet():
     spec = build_transform_pipeline(["pad"], {}, 2).device
     jax.config.update("jax_enable_x64", True)
     try:
-        logits = np.asarray(jax.jit(lambda v, x: model.apply(v, x, False))(
-            variables, jnp.asarray(x))["logits"])
+        # the eval forward in a thread: its tracing and XLA's work overlap
+        # the train step's
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        logits = pool.submit(lambda: np.asarray(jax.jit(lambda v, x: model.apply(v, x, False))(
+            variables, jnp.asarray(x))["logits"]))
         tx = jax_make_optimizer(CONFIG["train"], jlr.make_schedule(CONFIG["train"], 1))
         state = JaxTrainState(step=jnp.zeros((), jnp.int32),
                               params=variables["params"],
@@ -119,6 +123,8 @@ def jax_hrnet():
             "params": jax.tree.map(np.asarray, new_state.params),
             "stats": jax.tree.map(np.asarray, new_state.batch_stats),
         }
+        logits = logits.result()
+        pool.shutdown()
     finally:
         jax.config.update("jax_enable_x64", False)
     return variables, x, logits, images, labels, result

@@ -174,9 +174,8 @@ print(json.dumps({"modules": names, "loss": float(loss), "cm": int(cm.sum()),
 """
 
 
-def test_port_imports_and_runs_with_jax_blocked():
-    out = subprocess.run([sys.executable, "-c", _SUBPROCESS % (BLOCKED, CARD_ABSENT)],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+def test_port_imports_and_runs_with_jax_blocked(runs):
+    out = runs["port"].result(timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["modules"]) >= 20
@@ -263,9 +262,8 @@ print(json.dumps({"host_shape": list(host_batch[0].shape), "dc_terms": dc_terms,
 """
 
 
-def test_training_vocabulary_runs_with_jax_blocked():
-    out = subprocess.run([sys.executable, "-c", _TRAINING_VOCABULARY % (BLOCKED, CARD_ABSENT)],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+def test_training_vocabulary_runs_with_jax_blocked(runs):
+    out = runs["vocabulary"].result(timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["host_shape"] == [2, 32, 32, 3]
@@ -347,9 +345,8 @@ print(json.dumps({"round_trip": round_trip, "pool": len(pool), "outs": outs,
 """
 
 
-def test_video_and_export_run_with_jax_and_cv2_blocked():
-    out = subprocess.run([sys.executable, "-c", _VIDEO_AND_EXPORT % (BLOCKED, CARD_ABSENT)],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+def test_video_and_export_run_with_jax_and_cv2_blocked(runs):
+    out = runs["video"].result(timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["round_trip"] and res["pool"] == 5          # video 1 labels frames 90+
@@ -403,17 +400,53 @@ print(json.dumps({"blocked": blocked, "twins": [twins["ranks"], twins["ranks_agr
 """
 
 
-def test_parallel_step_and_mesh_export_run_with_jax_blocked(tmp_path):
+class _Run:
+    """A subprocess whose output goes to files (so that several run at once
+    without filling a pipe); `result()` waits for it."""
+
+    def __init__(self, args, directory: pathlib.Path, name: str, **kwargs):
+        self.out, self.err = directory / f"{name}.out", directory / f"{name}.err"
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(args, stdout=out, stderr=err, text=True, **kwargs)
+
+    def result(self, timeout: float) -> subprocess.CompletedProcess:
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            self.proc.kill()
+        return subprocess.CompletedProcess(self.proc.args, self.proc.returncode,
+                                           self.out.read_text(), self.err.read_text())
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The blocked runs of this file, each a process of its own, started
+    together so that their work overlaps; each test waits for its own."""
+    tmp = tmp_path_factory.mktemp("isolation")
+    (tmp / "sitecustomize.py").write_text(_SITECUSTOMIZE % (BLOCKED, CARD_ABSENT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp), str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    started = {
+        "port": _Run([sys.executable, "-c", _SUBPROCESS % (BLOCKED, CARD_ABSENT)], tmp,
+                     "port", cwd=ROOT),
+        "vocabulary": _Run([sys.executable, "-c", _TRAINING_VOCABULARY % (
+            BLOCKED, CARD_ABSENT)], tmp, "vocabulary", cwd=ROOT),
+        "video": _Run([sys.executable, "-c", _VIDEO_AND_EXPORT % (BLOCKED, CARD_ABSENT)],
+                      tmp, "video", cwd=ROOT),
+        "parallel": _Run([sys.executable, "-c", _PARALLEL], tmp, "parallel", cwd=ROOT,
+                         env=env)}
+    yield started
+    for run in started.values():
+        run.proc.kill()
+
+
+def test_parallel_step_and_mesh_export_run_with_jax_blocked(runs):
     """A train step over a (1, 2) grid of two ranks, one data rank's beside
     it (the sharded twins' arms with `--grid 1,2`; each rank a process of
     its own, which loads the same blocking prelude as its sitecustomize)
     and the serving export over a mesh of two CPU devices."""
-    (tmp_path / "sitecustomize.py").write_text(_SITECUSTOMIZE % (BLOCKED, CARD_ABSENT))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(tmp_path), str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p]))
-    out = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = runs["parallel"].result(timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["blocked"]

@@ -36,9 +36,11 @@ fixture before the JAX side compiles in this process. The grids over them:
 - The twins' tiny path with --grid 2,2 within the JAX twins test's bars,
   its losses within 1e-5 of the two data ranks'.
 - Refusals: a frame the model ranks cannot split or a stride that leaves a
-  rank no rows raises ValueError naming the layer; a projector, UPerNet,
-  FCN, PointRend and UNet raise NotImplementedError (the other graphs:
-  tests/test_torch_spatial_graphs.py).
+  rank no rows raises ValueError naming the layer; a projector (on OCRNet
+  and on UPerNet), PointRend (as EncDec's decoder and as its alias) and
+  UPerNet on the Inception-v3 encoder raise NotImplementedError (the other
+  graphs: tests/test_torch_spatial_graphs.py and
+  tests/test_torch_spatial_decoders.py).
 """
 import json
 import os
@@ -504,11 +506,15 @@ def test_deeper_misalignment_names_its_layer(ranks):
 @pytest.mark.parametrize("graph", [
     {"model": "OCRNet", "backbone": "resnet18",
      "projector": {"d": 8, "mlp": [[1, 8, 1]], "use_bn": True}},
-    {"model": "FCN", "width": 0.125},
-    {"model": "EncDec", "encoder": {"model": "ResNet18"},
+    {"model": "EncDec", "encoder": {"model": "ResNet18"}, "decoder": {"model": "PointRend"}},
+    {"model": "EncDec", "encoder": {"model": "InceptionV3"},
      "decoder": {"model": "UPerNet", "ppm_num_ch": 32, "fpn_num_ch": 32}},
     {"model": "PointRend", "encoder": {"model": "ResNet18"}},
-    {"model": "UNet"}], ids=["projector", "fcn", "upernet", "pointrend", "unet"])
+    {"model": "UPerNet", "encoder": {"model": "ResNet18"},
+     "decoder": {"ppm_num_ch": 32, "fpn_num_ch": 32},
+     "projector": {"d": 8, "mlp": [[1, 8, 1]], "use_bn": True}}],
+    ids=["projector", "encdec_pointrend", "upernet_inception", "pointrend",
+         "upernet_projector"])
 def test_other_graphs_raise_not_implemented(graph):
     model = build_model(graph, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 18"):

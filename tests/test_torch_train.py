@@ -21,6 +21,7 @@ other numbers by design). Tolerances:
     and at random weights and this tiny size the train-mode network
     amplifies that to about 1 % in the parameter gradients.
 """
+import concurrent.futures
 import pathlib
 
 import jax
@@ -424,10 +425,6 @@ def jax_step():
                               apply_fn=model.apply, tx=tx)
         step = jax_make_train_step(jax_build_loss(lcfg, task), spec, task,
                                    donate=False, train_metrics="s8")
-        new_state, metrics = step(state, jnp.asarray(images), jnp.asarray(labels),
-                                  jax.random.PRNGKey(0), 0)
-        mu = new_state.opt_state[0].mu          # (1 - b1) * g after one update
-        grads = jax.tree.map(lambda m: np.asarray(m) / (1 - 0.9), mu)
         x, lbl = jaug.augment_batch(jax.random.PRNGKey(0), jnp.asarray(images),
                                     jnp.asarray(labels), spec, True)
 
@@ -441,7 +438,16 @@ def jax_step():
                 argnums=(0, 1))(*s8)
             return s8, loss, grads
 
-        s8, loss, s8_grads = jax.jit(s8_and_grads)(variables, x)
+        # the s8 forward and its loss gradient in a thread: its tracing and
+        # XLA's work overlap the train step's
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        s8_out = pool.submit(jax.jit(s8_and_grads), variables, x)
+        new_state, metrics = step(state, jnp.asarray(images), jnp.asarray(labels),
+                                  jax.random.PRNGKey(0), 0)
+        mu = new_state.opt_state[0].mu          # (1 - b1) * g after one update
+        grads = jax.tree.map(lambda m: np.asarray(m) / (1 - 0.9), mu)
+        s8, loss, s8_grads = jax.block_until_ready(s8_out.result())
+        pool.shutdown()
         result = {
             "metrics": jax.tree.map(np.asarray, metrics),
             "params": jax.tree.map(np.asarray, new_state.params),

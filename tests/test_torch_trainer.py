@@ -12,6 +12,7 @@ matrices may differ on at most 1e-4 of the counted pixels (float32
 argmax ties), the metrics by 1e-4, the validation loss by 1e-5.
 """
 import argparse
+import concurrent.futures
 import json
 import pathlib
 
@@ -252,25 +253,32 @@ def served(tmp_path_factory, ocr_init):
             return out
         return wrapped
 
-    eval_step, eval_loss_step = jt.eval_step, jt.eval_loss_step
-    jt.eval_step = recording(eval_step, "infer")
-    jax_infer = jt.infer()
-    jt.eval_step = recording(eval_step, "validate")
-    jt.eval_loss_step = recording(eval_loss_step, "validate")
-    jt.validate(0)
-    jax_valid = dict(jt.metrics)
-    jax_cms = {"infer": sum(cms["infer"][1:]),       # [0] is the warm-up batch
-               "validate": sum(cms["validate"])}
-    jt.train_writer.close()
-    jt.valid_writer.close()
-
     sd = bridge_ocrnet(jax.tree.map(np.asarray, jt.state.params),
                        jax.tree.map(np.asarray, jt.state.batch_stats))
-    pt = Trainer(dict(config, run_id="port"), device="cpu")
-    ckpt.load_model_state(pt.model, sd)
-    port_infer = pt.infer()
-    port_valid = pt.validate(0)
-    pt.close()
+
+    def port_run():
+        pt = Trainer(dict(config, run_id="port"), device="cpu")
+        ckpt.load_model_state(pt.model, sd)
+        try:
+            return pt.infer(), pt.validate(0)
+        finally:
+            pt.close()
+
+    # the port's Trainer in a thread, beside the JAX Trainer's steps
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        port = pool.submit(port_run)
+        eval_step, eval_loss_step = jt.eval_step, jt.eval_loss_step
+        jt.eval_step = recording(eval_step, "infer")
+        jax_infer = jt.infer()
+        jt.eval_step = recording(eval_step, "validate")
+        jt.eval_loss_step = recording(eval_loss_step, "validate")
+        jt.validate(0)
+        jax_valid = dict(jt.metrics)
+        jax_cms = {"infer": sum(cms["infer"][1:]),       # [0] is the warm-up batch
+                   "validate": sum(cms["validate"])}
+        jt.train_writer.close()
+        jt.valid_writer.close()
+        port_infer, port_valid = port.result()
     torch.save({"model_state_dict": sd}, root / "published.pt")
     return root, config, jax_infer, jax_valid, jax_cms, port_infer, port_valid
 
